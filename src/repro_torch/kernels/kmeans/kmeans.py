@@ -1,0 +1,140 @@
+"""CUDA kernel for the fused KMeans assignment, built and bound at first use.
+
+Replaces the Pallas TPU kernel ``repro/kernels/kmeans/kmeans.py::
+kmeans_assign``.  The source is ``csrc/kmeans.cu`` (its header note gives
+the design and the bound on an H100).  ``nvcc`` compiles it for
+``sm_90a`` into a shared library with a plain C interface under the
+repository's ``build/kernels/`` the first time a CUDA tensor reaches
+`kmeans_assign`; the library is loaded with ``ctypes``.  Nothing is
+compiled or imported at module import, so the CPU tests import this
+module freely.
+
+`LAUNCHES` counts the wrapper's kernel launches (one per call, which runs
+the assign, accumulate and finalize kernels on the caller's stream).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "kmeans.cu"
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# wrapper launches; read by chip_smoke.py to show the main path ran here
+LAUNCHES = 0
+_count_lock = threading.Lock()
+_build_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("kmeans_assign: no CUDA toolkit (nvcc) found to "
+                           "build csrc/kmeans.cu")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build() -> Path:
+    """Compile csrc/kmeans.cu (once per source and flags) and return the
+    library's path.  The name carries a hash of both, so an edited source
+    never loads a stale build."""
+    tag = hashlib.sha1(SOURCE.read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"libkmeans-{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}) building "
+                           f"{SOURCE.name}:\n{res.stderr}")
+    os.replace(tmp, out)        # atomic: a concurrent builder sees all or none
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed and bind the C entry points (idempotent)."""
+    global _lib
+    with _build_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.kmeans_assign_workspace_bytes.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            lib.kmeans_assign_workspace_bytes.restype = ctypes.c_size_t
+            lib.kmeans_assign_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            lib.kmeans_assign_launch.restype = ctypes.c_int
+            lib.kmeans_error_string.argtypes = [ctypes.c_int]
+            lib.kmeans_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def _check(points: torch.Tensor, centroids: torch.Tensor) -> None:
+    for name, t in (("points", points), ("centroids", centroids)):
+        if t.device.type != "cuda":
+            raise ValueError(f"kmeans_assign: {name} must be a CUDA tensor, "
+                             f"got {t.device}")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"kmeans_assign: {name} must be float32 or "
+                            f"bfloat16, got {t.dtype}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"kmeans_assign: {name} must be a contiguous "
+                             f"2-D tensor, got shape {tuple(t.shape)}")
+    if centroids.device != points.device:
+        raise ValueError(f"kmeans_assign: centroids on {centroids.device}, "
+                         f"points on {points.device}")
+    if centroids.dtype != points.dtype:
+        raise TypeError(f"kmeans_assign: centroids are {centroids.dtype}, "
+                        f"points {points.dtype}")
+    if points.shape[1] != centroids.shape[1]:
+        raise ValueError(f"kmeans_assign: points D={points.shape[1]} but "
+                         f"centroids D={centroids.shape[1]}")
+    if centroids.shape[0] < 1 or not 1 <= points.shape[1] <= 4096:
+        raise ValueError(f"kmeans_assign: need K >= 1 and 1 <= D <= 4096, "
+                         f"got K={centroids.shape[0]}, D={points.shape[1]}")
+    if points.shape[0] >= 2 ** 31:
+        raise ValueError("kmeans_assign: N must fit in a 32-bit int")
+
+
+def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor):
+    """points (N,D), centroids (K,D) on one CUDA device, both float32 or
+    both bfloat16 -> (sums (K,D), counts (K,), sse ()) in float32."""
+    global LAUNCHES
+    _check(points, centroids)
+    lib = load()
+    n, d = points.shape
+    k = centroids.shape[0]
+    dev = points.device
+    ws = torch.empty(lib.kmeans_assign_workspace_bytes(n, k, d),
+                     dtype=torch.uint8, device=dev)
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((k,), dtype=torch.float32, device=dev)
+    sse = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.kmeans_assign_launch(
+            points.data_ptr(), centroids.data_ptr(), n, k, d,
+            int(points.dtype == torch.bfloat16), ws.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), sse.data_ptr(), stream)
+    if err != 0:
+        msg = lib.kmeans_error_string(err).decode()
+        raise RuntimeError(f"kmeans_assign: launch failed with CUDA error "
+                           f"{err} ({msg})")
+    with _count_lock:
+        LAUNCHES += 1
+    return sums, counts, sse
