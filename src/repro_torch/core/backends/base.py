@@ -96,8 +96,9 @@ def register_backend(backend: ComputeBackend):
 def get_backend(name: str) -> ComputeBackend:
     if name == "simulated":
         raise NotImplementedError(
-            "the simulated backend is slice 2 of ROADMAP.md and not "
-            "ported yet; use backend='inprocess'")
+            "the simulated backend belongs to the 'Resilience and "
+            "elasticity' slice of ROADMAP.md and is not ported yet; use "
+            "backend='inprocess'")
     if name not in _REGISTRY:
         # late import side-effect registration
         from repro_torch.core.backends import inprocess  # noqa: F401

@@ -36,8 +36,9 @@ cover.
 
 The session runs on the card unless `device="cpu"` is asked for; without
 CUDA it raises rather than falling back.  The elastic layers (autoscaler,
-rebalancer) and the simulated backend are slice 2 of ROADMAP.md and
-raise NotImplementedError until they are ported.
+rebalancer) and the simulated backend belong to the 'Resilience and
+elasticity' slice of ROADMAP.md and raise NotImplementedError until they
+are ported.
 """
 from __future__ import annotations
 
@@ -86,8 +87,8 @@ class PilotSession:
     device: where pilots and device-tier data live (default cuda; no
         CUDA raises).  Pilot descriptions built from kwargs by
         `add_pilot` inherit it; an explicit description always wins.
-    autoscale / rebalance: not ported yet (ROADMAP.md slice 2); True
-        raises NotImplementedError.
+    autoscale / rebalance: not ported yet (ROADMAP.md, 'Resilience and
+        elasticity'); True raises NotImplementedError.
     """
 
     def __init__(self, *, policy: Optional[SchedulingPolicy] = None,
@@ -102,8 +103,9 @@ class PilotSession:
         for flag, on in (("autoscale", autoscale), ("rebalance", rebalance)):
             if on:
                 raise NotImplementedError(
-                    f"PilotSession({flag}=True): the elastic layers are "
-                    f"slice 2 of ROADMAP.md and not ported yet")
+                    f"PilotSession({flag}=True): the elastic layers "
+                    f"belong to the 'Resilience and elasticity' slice of "
+                    f"ROADMAP.md and are not ported yet")
         self.device = resolve_device(device)
         self.name = name or f"session-{uuid.uuid4().hex[:8]}"
         self.interconnect = interconnect
@@ -123,6 +125,9 @@ class PilotSession:
         self._host_backend = make_backend("host")
         self._scratch: Optional[str] = None
         self._closed = False
+        # ServingEngines deployed on this session register here (the
+        # autoscaler, when ported, reads their load from this list)
+        self.serving_engines: List = []
         self._supervisor: Optional[PilotSupervisor] = None
         if supervise:
             self._supervisor = PilotSupervisor(

@@ -501,9 +501,11 @@ class WorkerPool:
         pilot = self.pilot
         if (pilot is not None
                 and getattr(pilot, "state", State.RUNNING)
-                is not State.RUNNING):
+                in (State.FAILED, State.CANCELED)):
             # the pilot died with tasks queued: every task re-binds (or
-            # finalizes) through the engine's failure path
+            # finalizes) through the engine's failure path.  A DONE pilot
+            # is being released, and close() drains its accepted backlog
+            # (its CU loop sets DONE before cancel() closes this pool)
             err = TaskError(f"pilot {getattr(pilot, 'id', '?')} is "
                             f"{getattr(pilot.state, 'value', pilot.state)}")
             for t in chunk:

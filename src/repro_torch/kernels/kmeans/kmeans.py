@@ -5,9 +5,9 @@ kmeans_assign``.  The source is ``csrc/kmeans.cu`` (its header note gives
 the design and the bound on an H100).  ``nvcc`` compiles it for
 ``sm_90a`` into a shared library with a plain C interface under the
 repository's ``build/kernels/`` the first time a CUDA tensor reaches
-`kmeans_assign`; the library is loaded with ``ctypes``.  Nothing is
-compiled or imported at module import, so the CPU tests import this
-module freely.
+`kmeans_assign` (``kernels/_nvcc.py``); the library is loaded with
+``ctypes``.  Nothing is compiled or imported at module import, so the CPU
+tests import this module freely.
 
 `LAUNCHES` counts the wrapper's kernel launches (one per call, which runs
 the assign, accumulate and finalize kernels on the caller's stream).
@@ -15,73 +15,42 @@ the assign, accumulate and finalize kernels on the caller's stream).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _nvcc
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "kmeans.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # wrapper launches; read by chip_smoke.py to show the main path ran here
 LAUNCHES = 0
 _count_lock = threading.Lock()
-_build_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("kmeans_assign: no CUDA toolkit (nvcc) found to "
-                           "build csrc/kmeans.cu")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.kmeans_assign_workspace_bytes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.kmeans_assign_workspace_bytes.restype = ctypes.c_size_t
+    lib.kmeans_assign_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.kmeans_assign_launch.restype = ctypes.c_int
+    lib.kmeans_error_string.argtypes = [ctypes.c_int]
+    lib.kmeans_error_string.restype = ctypes.c_char_p
 
 
 def build() -> Path:
     """Compile csrc/kmeans.cu (once per source and flags) and return the
-    library's path.  The name carries a hash of both, so an edited source
-    never loads a stale build."""
-    tag = hashlib.sha1(SOURCE.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libkmeans-{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) building "
-                           f"{SOURCE.name}:\n{res.stderr}")
-    os.replace(tmp, out)        # atomic: a concurrent builder sees all or none
-    return out
+    library's path (kernels/_nvcc.py)."""
+    return _nvcc.build(SOURCE, "kmeans")
 
 
 def load() -> ctypes.CDLL:
     """Build if needed and bind the C entry points (idempotent)."""
-    global _lib
-    with _build_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.kmeans_assign_workspace_bytes.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            lib.kmeans_assign_workspace_bytes.restype = ctypes.c_size_t
-            lib.kmeans_assign_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-            lib.kmeans_assign_launch.restype = ctypes.c_int
-            lib.kmeans_error_string.argtypes = [ctypes.c_int]
-            lib.kmeans_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    return _nvcc.load(SOURCE, "kmeans", _bind)
 
 
 def _check(points: torch.Tensor, centroids: torch.Tensor) -> None:

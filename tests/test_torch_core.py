@@ -165,10 +165,12 @@ def test_default_device_raises_without_cuda(entry):
 def test_slice_two_features_raise_not_implemented(ask):
     if ask == "simulated":
         with port_core.PilotSession(device="cpu") as s:
-            with pytest.raises(NotImplementedError, match="slice 2"):
+            with pytest.raises(NotImplementedError,
+                               match="Resilience and elasticity"):
                 s.add_pilot(backend="simulated")
         return
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError,
+                       match="Resilience and elasticity"):
         port_core.PilotSession(device="cpu", **{ask: True})
 
 
@@ -193,3 +195,27 @@ def test_port_runs_kmeans_without_jax_or_the_reference():
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# -- a fault of the reference's task engine, repaired in the port -----------
+@pytest.mark.parametrize("rep", range(8))
+def test_pool_drains_on_close_no_task_lost(rep):
+    """close() is a drain barrier: every accepted task runs.  The
+    reference (and the port before its repair) let the pilot's CU loop set
+    DONE before its pool drained, and the drain then failed the backlog
+    with "pilot ... is Done" in about half the runs; repeated so that the
+    race cannot hide."""
+    import threading
+    before = {t.name for t in threading.enumerate()}
+    done = []
+    with port_core.PilotSession(device="cpu") as s:
+        s.add_pilot(task_workers=2)
+        batch = s.submit_tasks([lambda i=i: done.append(i) or i
+                                for i in range(500)])
+        # close() without waiting: the drain must finish the backlog
+    assert batch.done
+    assert sorted(t.result() for t in batch) == list(range(500))
+    assert len(done) == 500
+    leaked = [t for t in threading.enumerate()
+              if "-taskw" in t.name and t.name not in before and t.is_alive()]
+    assert not leaked
