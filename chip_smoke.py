@@ -5,17 +5,24 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, started together), holds each against its plain
-PyTorch version on the card, then drives the port's two paths, each with
-its kernel's launch count set to 0 just before and read just after:
+PyTorch version on the card, then drives the port's paths, each with its
+kernels' launch counts set to 0 just before and read just after:
 
 - KMeans: the paper's KMeans over points retained in pilot device memory
   (PilotSession -> add_pilots -> data -> replicate_to_pilot -> kmeans) at
   the paper's three scenario sizes, checked against the same run on the
   CPU (kernel kmeans_assign);
-- serving: Llama-3.2-1B at its published widths (random weights from a
-  seed) served by ServingEngine on a PilotSession pilot, 16 requests at
-  batch 8 (kernel decode_attention), after a model-level check of the
-  kernel decode path against the plain one and an fp32 run.
+- serving Llama-3.2-1B at its published widths (random weights from a
+  seed) by ServingEngine on a PilotSession pilot, 16 requests at batch 8
+  (kernels flash_attention in each prefill, decode_attention in each
+  decode step), after a model-level check of the kernel decode path
+  against the plain one and an fp32 run;
+- serving Hymba-1.5B at its published widths (32 layers of parallel
+  attention and Mamba heads, sliding window 1024 but for 3 global layers)
+  the same way, 16 requests of 512-2048 prompt tokens at batch 8 (kernels
+  flash_attention and selective_scan in each prefill, decode_attention in
+  each decode step), after a model-level check of the kernel path against
+  the plain path and an fp32 run on prompts longer than the window.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without CUDA or outside a checkout of the
@@ -52,10 +59,21 @@ REPLACES = "src/repro/kernels/kmeans/kmeans.py:47"
 ATTN_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
                "decode_attention.cu")
 ATTN_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:66"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:82"
+SCAN_SOURCE = ("src/repro_torch/kernels/selective_scan/csrc/"
+               "selective_scan.cu")
+SCAN_REPLACES = "src/repro/kernels/selective_scan/selective_scan.py:55"
+PEAK_BF16_FLOPS = 989e12          # dense tensor-core bf16
 PARTS, ITERS, D = 8, 5, 8
 # the serving phase: Llama-3.2-1B, batch 8, 1024-slot cache, 16 requests
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_GEN = 8, 1024, 16, 64
 PROMPT_LENS = (96, 128, 160)
+# the Hymba phases: 4 prompts of 1536 (past the 1024 window) for the model
+# check; 16 requests of 512/1280/2048 tokens into a 4096-slot cache
+HYMBA_CHECK_LEN, HYMBA_MAX_LEN = 1536, 4096
+HYMBA_PROMPT_LENS = (512, 1280, 2048)
 
 
 def log(*args) -> None:
@@ -380,12 +398,18 @@ def decode_logits(torch, model, params, cache, feed, first_pos):
     return out, ms
 
 
-def step_breakdown(per: dict) -> dict:
-    """Device us of one decode step by kind: the decode_attention kernel's
-    two launches, GEMMs (cuBLAS/cuBLASLt names), everything else."""
-    out = {"decode_attention": 0.0, "gemm": 0.0, "other": 0.0}
+def breakdown(per: dict) -> dict:
+    """Device us of a traced prefill or decode step by kind: the attention
+    and scan kernels' launches, GEMMs (cuBLAS/cuBLASLt names), everything
+    else."""
+    out = {"flash_attention": 0.0, "selective_scan": 0.0,
+           "decode_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for name, us in per.items():
-        if re.search(r"split_kernel|combine_kernel", name):
+        if "flash_kernel" in name:
+            out["flash_attention"] += us
+        elif "scan_kernel" in name:
+            out["selective_scan"] += us
+        elif re.search(r"split_kernel|combine_kernel", name):
             out["decode_attention"] += us
         elif re.search(r"gemm|gemv|nvjet|xmma|cutlass|cublas|splitK", name,
                        re.I):
@@ -397,8 +421,9 @@ def step_breakdown(per: dict) -> dict:
 
 def model_phase(torch, cfg, params) -> dict:
     """Kernel vs plain at model level, full width: prefill 8 prompts of 128
-    tokens, then 8 decode steps with decode_kernel=True, with
-    decode_kernel=False and with the fp32 model (params cast to fp32), all
+    tokens, then 8 decode steps with decode_kernel=True (the config's
+    default), with decode_kernel=False and with the fp32 model (params
+    cast to fp32), all
     fed the fp32 model's greedy tokens.  Tolerance: the kernel path may lie
     no further from the plain bf16 path than the plain bf16 path lies from
     the fp32 model on the same params and tokens (PERF.md)."""
@@ -447,7 +472,7 @@ def model_phase(torch, cfg, params) -> dict:
     pos = torch.full((SERVE_BATCH,), 136, dtype=torch.int32, device="cuda")
     _, wall, per = device_trace(torch, lambda: kern.decode(
         params, cache_k, feed[-1][:, None], pos))
-    parts = step_breakdown(per)
+    parts = breakdown(per)
     busy = sum(parts.values())
     log(f"trace of one decode step (kernel path, B=8, Sc=1024, profiler "
         f"on): wall_us={wall * 1e6:.3f} device_busy_us={busy:.3f} "
@@ -461,10 +486,14 @@ def model_phase(torch, cfg, params) -> dict:
             "step_us": parts, "step_wall_us": wall * 1e6}
 
 
-def serving_phase(torch, core, cfg, params, attn_mod) -> dict:
-    """The serving path at full width: ServingEngine on a one-pilot
-    PilotSession on the card, 16 greedy requests.  Returns the engine's
-    stats, the kernel launches of the run and the host measurements."""
+def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
+          memory_gb: float):
+    """ServingEngine on a one-pilot PilotSession on the card: greedy
+    SERVE_GEN tokens for each prompt at batch SERVE_BATCH.  `kernels` maps
+    a name to a kernel module: each LAUNCHES is set to 0 just before the
+    requests go in and read just after they drained.  Returns the engine's
+    stats, the launches, the wall seconds, the deploy+load seconds and the
+    device types the runtime's params and cache were seen on."""
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.model import build_model
     from repro_torch.serving import ServingEngine
@@ -480,14 +509,10 @@ def serving_phase(torch, core, cfg, params, attn_mod) -> dict:
         return inner(params, cache, tokens, positions)
 
     model = dataclasses.replace(model, decode=probe)
-    rng = np.random.default_rng(0)
-    lens = itertools.islice(itertools.cycle(PROMPT_LENS), SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in lens]
     with core.PilotSession() as s:
-        (pilot,) = s.add_pilots(1, memory_gb=4)
+        (pilot,) = s.add_pilots(1, memory_gb=memory_gb)
         with ServingEngine(s, model, params=params, batch_size=SERVE_BATCH,
-                           max_len=SERVE_MAX_LEN, page_tokens=16) as eng:
+                           max_len=max_len, page_tokens=16) as eng:
             t0 = time.perf_counter()
             eng.deploy()
             # the resident loop rebuilds the params on the card from the
@@ -499,37 +524,359 @@ def serving_phase(torch, core, cfg, params, attn_mod) -> dict:
                                        "within 300 s")
                 time.sleep(0.01)
             setup = time.perf_counter() - t0
-            attn_mod.LAUNCHES = 0
+            for mod in kernels.values():
+                mod.LAUNCHES = 0
             t0 = time.perf_counter()
             reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
-            eng.drain(timeout=600)
+            eng.drain(timeout=900)
             wall = time.perf_counter() - t0
-            launches = attn_mod.LAUNCHES
+            launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
             outs = [r.result(timeout=10) for r in reqs]
             st = eng.stats()
-    steps = st["decode_steps"]
-    assert st["completed"] == SERVE_REQUESTS, st
+    n = len(prompts)
+    assert st["completed"] == n, st
     assert all(len(o) == SERVE_GEN for o in outs)
     assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
-    assert st["tokens_served"] == SERVE_REQUESTS * SERVE_GEN, st
+    assert st["tokens_served"] == n * SERVE_GEN, st
     assert st["refills"] >= SERVE_BATCH, st
-    assert launches == cfg.num_layers * steps, (
-        f"decode_attention launched {launches} times in {steps} decode "
-        f"steps of {cfg.num_layers} layers")
     assert seen == {"cuda"}, f"runtime params/cache on {seen}"
-    log(f"serving llama3.2-1b full width on 1 pilot: "
-        f"{st['completed']}/{SERVE_REQUESTS} requests, "
-        f"{st['tokens_served']} tokens in {wall:.6f} s "
-        f"({st['tokens_served'] / wall:.3f} tok/s), {steps} decode steps "
-        f"({wall / steps * 1e3:.4f} ms per step, refills included), "
-        f"refills={st['refills']} waves={st['waves']} "
-        f"p50_latency_s={st['p50_latency_s']:.6f} "
-        f"p99_latency_s={st['p99_latency_s']:.6f} "
-        f"decode_attention launches={launches} (= {cfg.num_layers} x "
-        f"{steps}); params+cache on {sorted(seen)}; deploy+load "
-        f"{setup:.3f} s")
     return {"stats": st, "wall_s": wall, "launches": launches,
             "setup_s": setup}
+
+
+def serve_line(name, cfg, res) -> str:
+    st, wall = res["stats"], res["wall_s"]
+    steps = st["decode_steps"]
+    return (f"serving {name} full width on 1 pilot: "
+            f"{st['completed']} requests, {st['tokens_served']} tokens in "
+            f"{wall:.6f} s ({st['tokens_served'] / wall:.3f} tok/s), "
+            f"{steps} decode steps ({wall / steps * 1e3:.4f} ms per step, "
+            f"refills included), refills={st['refills']} "
+            f"waves={st['waves']} p50_latency_s={st['p50_latency_s']:.6f} "
+            f"p99_latency_s={st['p99_latency_s']:.6f} launches="
+            f"{res['launches']} ({cfg.num_layers} layers); params+cache on "
+            f"cuda; deploy+load {res['setup_s']:.3f} s")
+
+
+def serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
+    """The Llama serving path at full width: 16 greedy requests of 96-160
+    prompt tokens into a 1024-slot cache.  flash_attention runs once per
+    layer in each prefill (a wave or a refill), decode_attention once per
+    layer in each decode step."""
+    rng = np.random.default_rng(0)
+    lens = itertools.islice(itertools.cycle(PROMPT_LENS), SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    res = serve(torch, core, cfg, params, prompts, kernels,
+                max_len=SERVE_MAX_LEN, memory_gb=4)
+    st, launches = res["stats"], res["launches"]
+    prefills = st["waves"] + st["refills"]
+    assert launches["decode_attention"] == (
+        cfg.num_layers * st["decode_steps"]), (launches, st)
+    assert launches["flash_attention"] == cfg.num_layers * prefills, (
+        launches, st)
+    log(serve_line("llama3.2-1b", cfg, res))
+    return res
+
+
+def hymba_inputs(torch, cfg, b: int, s: int, seed: int):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+
+
+def flash_bound(b, sq, skv, nq, nkv, h, esize, causal, window):
+    """Least time for flash attention on an H100 SXM (s), what bounds it and
+    the valid (q, kv) pairs: 4*H FLOP per valid pair and query head against
+    the tensor-core peak of the input type (bf16; fp32 runs outside the
+    tensor cores, at the fp32 peak), and q, k, v read and the output
+    written once."""
+    i = np.arange(sq)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(i, skv - 1) if causal else np.full_like(i, skv - 1)
+    pairs = int(np.maximum(0, hi - lo + 1).sum())
+    flops = 4.0 * b * nq * h * pairs
+    peak = PEAK_BF16_FLOPS if esize == 2 else PEAK_FP32_FLOPS
+    nbytes = (2 * b * sq * nq * h + 2 * b * skv * nkv * h) * esize
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), pairs
+
+
+def sdpa_prefill(torch, q, k, v, causal, window):
+    """The library call: scaled_dot_product_attention with the boolean
+    causal/window mask and enable_gqa, in the (B,S,N,H) layout."""
+    import torch.nn.functional as F
+    sq, skv = q.shape[1], k.shape[1]
+    rel = (torch.arange(sq, device=q.device)[:, None]
+           - torch.arange(skv, device=q.device)[None, :])
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= rel >= 0
+    if window:
+        mask &= rel < window
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def check_flash(torch, op, name, b, s, nq, nkv, h, dtype, window,
+                causal=True) -> dict:
+    """flash_attention kernel vs its plain version on the same
+    card-resident inputs.  Tolerances: fp32 atol/rtol 2e-5 (as
+    tests/test_kernels.py); bf16 atol/rtol 2e-2 against the fp32 plain
+    result cast to bf16.  Times: kernel (CUDA-graph replay and eager),
+    plain version and SDPA, each over enough input copies to exceed L2."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    args = tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((b, s, nq, h), (b, s, nkv, h), (b, s, nkv, h)))
+    got = op(*args, causal=causal, window=window, impl="cuda")
+    torch.cuda.synchronize()
+    want = op(*(t.float() for t in args), causal=causal, window=window,
+              impl="ref")
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    want = want.to(dtype).float()
+    err = (got.float() - want).abs()
+    assert bool((err <= tol + tol * want.abs()).all()), (
+        f"flash_attention {name}: max |err| {float(err.max())}")
+    lib = sdpa_prefill(torch, *args, causal, window)
+    lib_err = float((lib.float() - want).abs().max())
+    assert lib_err <= 5e-2, f"SDPA disagrees on {name}: {lib_err}"
+    esize = args[0].element_size()
+    nbytes = sum(t.numel() for t in args) * esize
+    copies = max(2, math.ceil(3 * L2_BYTES / nbytes))
+    sets = [args] + [tuple(t.clone() for t in args)
+                     for _ in range(copies - 1)]
+    kw = {"causal": causal, "window": window}
+    ms = graph_ms(torch, rotating(sets, lambda *a: op(
+        *a, impl="cuda", **kw)), reps=2 * copies)
+    eager = event_ms(torch, rotating(sets, lambda *a: op(
+        *a, impl="cuda", **kw)), reps=copies)
+    plain = event_ms(torch, rotating(sets, lambda *a: op(
+        *a, impl="ref", **kw)), reps=copies)
+    library = event_ms(torch, rotating(sets, lambda *a: sdpa_prefill(
+        torch, *a, causal, window)), reps=copies)
+    b_s, b_by, pairs = flash_bound(b, s, s, nq, nkv, h, esize, causal,
+                                   window)
+    row = {"shape": name, "b": b, "s": s, "nq": nq, "nkv": nkv, "h": h,
+           "window": window, "causal": causal,
+           "dtype": str(dtype).split(".")[-1], "kernel_ms": ms,
+           "kernel_eager_ms": eager, "plain_ms": plain,
+           "library_ms": library, "bound_us": b_s * 1e6, "bound_by": b_by,
+           "pairs": pairs, "max_abs_err": float(err.max()),
+           "library_max_abs_err": lib_err}
+    log(f"flash_attention check {name} B={b} S={s} {nq}/{nkv} H={h} "
+        f"{row['dtype']} window={window}: kernel_ms={ms:.6f} "
+        f"kernel_eager_ms={eager:.6f} plain_ms={plain:.6f} "
+        f"sdpa_ms={library:.6f} bound_us={b_s * 1e6:.4f} ({b_by}) "
+        f"max_abs_err={row['max_abs_err']:.3e} sdpa_err={lib_err:.3e}")
+    return row
+
+
+def scan_bound(b, s, di, n, esize):
+    """Least time for the selective scan on an H100 SXM (s) and what
+    bounds it: x, B, C read and y written in the input type, dt read and
+    h_end written in fp32, once each; 7 fp32 operations per (b, t, d, n)
+    (the exp counted as one) at the fp32 peak."""
+    nbytes = (2 * b * s * di + 2 * b * s * n) * esize + (b * s * di
+                                                         + b * di * n) * 4
+    flops = 7.0 * b * s * di * n
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def check_scan(torch, op, name, b, s, di, n, dtype, h0=False) -> dict:
+    """selective_scan kernel vs its plain version on the same card-resident
+    inputs (drawn as tests/test_kernels.py draws them).  Tolerances: y
+    atol/rtol 1e-4 in fp32 and 2e-2 in bf16 (one rounding of the same fp32
+    sum), h_end atol/rtol 1e-4.  Times as check_flash; no PyTorch call
+    computes the scan, so there is no library time."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    args = [(0.5 * rnd(b, s, di)).to(dtype),
+            torch.nn.functional.softplus(rnd(b, s, di)),
+            -torch.exp(0.3 * rnd(di, n)),
+            (0.5 * rnd(b, s, n)).to(dtype), (0.5 * rnd(b, s, n)).to(dtype),
+            torch.ones(di, device="cuda")]
+    args.append(rnd(b, di, n) if h0 else None)
+    y, h = op(*args, impl="cuda")
+    torch.cuda.synchronize()
+    wy, wh = op(*args, impl="ref")
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    ey = (y.float() - wy.float()).abs()
+    eh = (h - wh).abs()
+    assert bool((ey <= tol + tol * wy.float().abs()).all()), (
+        f"selective_scan {name}: y max |err| {float(ey.max())}")
+    assert bool((eh <= 1e-4 + 1e-4 * wh.abs()).all()), (
+        f"selective_scan {name}: h_end max |err| {float(eh.max())}")
+    esize = args[0].element_size()
+    nbytes = sum(t.numel() * t.element_size() for t in args
+                 if t is not None)
+    copies = max(2, math.ceil(3 * L2_BYTES / nbytes))
+    sets = [args] + [[None if t is None else t.clone() for t in args]
+                     for _ in range(copies - 1)]
+    ms = graph_ms(torch, rotating(sets, lambda *a: op(*a, impl="cuda")),
+                  reps=2 * copies)
+    eager = event_ms(torch, rotating(sets, lambda *a: op(*a, impl="cuda")),
+                     reps=copies)
+    plain = event_ms(torch, rotating(sets, lambda *a: op(*a, impl="ref")),
+                     reps=2)
+    b_s, b_by = scan_bound(b, s, di, n, esize)
+    row = {"shape": name, "b": b, "s": s, "di": di, "n": n, "h0": h0,
+           "dtype": str(dtype).split(".")[-1], "kernel_ms": ms,
+           "kernel_eager_ms": eager, "plain_ms": plain, "library_ms": None,
+           "bound_us": b_s * 1e6, "bound_by": b_by,
+           "max_abs_err": float(ey.max()), "h_end_max_abs_err":
+           float(eh.max())}
+    log(f"selective_scan check {name} B={b} S={s} Di={di} N={n} "
+        f"{row['dtype']} h0={h0}: kernel_ms={ms:.6f} "
+        f"kernel_eager_ms={eager:.6f} plain_ms={plain:.6f} "
+        f"bound_us={b_s * 1e6:.4f} ({b_by}) y_err={row['max_abs_err']:.3e} "
+        f"h_end_err={row['h_end_max_abs_err']:.3e}")
+    return row
+
+
+def hymba_model_phase(torch, cfg, params, kernels: dict) -> dict:
+    """Kernel vs plain at model level, full width: prefill 4 prompts of
+    1536 tokens (past the 1024 window: SWA masking in prefill and the
+    rolled cache in decode), then 8 decode steps, three ways: the kernel
+    path; the plain path (decode_kernel=False, and prefill attention and
+    scan patched to their plain versions here); the fp32 model (params
+    cast to fp32) on the plain path.  All are fed the fp32 model's greedy
+    tokens.  Tolerance, as for Llama (PERF.md): max|dlogits| of kernel vs
+    plain <= max|dlogits| of plain bf16 vs fp32, prefill logits
+    included."""
+    import functools
+
+    import repro_torch.models.attention as attn_models
+    import repro_torch.models.ssm as ssm_models
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+
+    b, s = 4, HYMBA_CHECK_LEN
+    kern = build_model(cfg)
+    plain = build_model(dataclasses.replace(cfg, decode_kernel=False))
+    m32 = build_model(dataclasses.replace(cfg, decode_kernel=False,
+                                          dtype="float32"))
+    prompts = hymba_inputs(torch, cfg, b, s, seed=1)
+    pos0 = torch.full((b,), s, dtype=torch.int32, device="cuda")
+
+    def run(model, p, feed=None):
+        logits, cache = model.prefill(p, {"tokens": prompts},
+                                      HYMBA_MAX_LEN)
+        outs, toks, pos = [logits.float()], [], pos0
+        for t in range(8):
+            tok = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[t])
+            toks.append(tok)
+            logits, cache = model.decode(p, cache, tok[:, None], pos)
+            outs.append(logits.float())
+            pos = pos + 1
+        return outs, toks
+
+    real = (attn_models.flash_attention_op, ssm_models.selective_scan_op)
+    attn_models.flash_attention_op = functools.partial(real[0], impl="ref")
+    ssm_models.selective_scan_op = functools.partial(real[1], impl="ref")
+    try:
+        for mod in kernels.values():
+            mod.LAUNCHES = 0
+        p32 = tree_map(lambda t: t.float(), params)
+        want32, feed = run(m32, p32)
+        del p32
+        got_p, _ = run(plain, params, feed)
+        plain_launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    finally:
+        attn_models.flash_attention_op, ssm_models.selective_scan_op = real
+    assert not any(plain_launches.values()), (
+        f"the plain path launched kernels: {plain_launches}")
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    got_k, _ = run(kern, params, feed)
+    launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    assert launches["flash_attention"] == cfg.num_layers, launches
+    assert launches["selective_scan"] == cfg.num_layers, launches
+    assert launches["decode_attention"] == 8 * cfg.num_layers, launches
+    d = max(float((a - c).abs().max()) for a, c in zip(got_k, got_p))
+    d_plain = max(float((a - c).abs().max()) for a, c in zip(got_p, want32))
+    d_kernel = max(float((a - c).abs().max()) for a, c in zip(got_k, want32))
+    agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum())
+                for a, c in zip(got_k, got_p))
+    scale = max(float(a.abs().max()) for a in got_p)
+    log(f"model check hymba-1.5b full width, {b} prompts x {s}, 8 decode "
+        f"steps: max|dlogits| kernel vs plain = {d:.6f} (bound: plain vs "
+        f"fp32 = {d_plain:.6f}); kernel vs fp32 = {d_kernel:.6f}; "
+        f"max|logits| {scale:.4f}; greedy agree {agree}/{9 * b}; "
+        f"kernel-path launches {launches}, plain-path launches "
+        f"{plain_launches}")
+    assert all(bool(torch.isfinite(a).all()) for a in got_k + got_p)
+    assert d <= d_plain, (f"the kernel path differs from the plain path by "
+                          f"{d}, more than the plain bf16 path's own error "
+                          f"{d_plain} against fp32")
+    return {"max_abs_dlogits": d, "plain_vs_fp32": d_plain,
+            "kernel_vs_fp32": d_kernel, "greedy_agree": agree,
+            "kernel_launches": launches}
+
+
+def hymba_trace(torch, cfg, params) -> dict:
+    """Where Hymba's time goes: one refill prefill (B=1, 2048 tokens) and
+    one decode step at B=8 over a 4096-slot cache, each under the
+    profiler, kernel path."""
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    out = {}
+    prompt = hymba_inputs(torch, cfg, 1, 2048, seed=2)
+    model.prefill(params, {"tokens": prompt}, HYMBA_MAX_LEN)   # warm
+    _, wall, per = device_trace(torch, lambda: model.prefill(
+        params, {"tokens": prompt}, HYMBA_MAX_LEN))
+    out["prefill"] = (wall, per)
+    prompts = hymba_inputs(torch, cfg, SERVE_BATCH, 512, seed=3)
+    _, cache = model.prefill(params, {"tokens": prompts}, HYMBA_MAX_LEN)
+    tok = prompts[:, -1:]
+    pos = torch.full((SERVE_BATCH,), 512, dtype=torch.int32, device="cuda")
+    model.decode(params, cache, tok, pos)                        # warm
+    _, wall, per = device_trace(torch, lambda: model.decode(
+        params, cache, tok, pos + 1))
+    out["decode"] = (wall, per)
+    res = {}
+    shape = {"prefill": "B=1, S=2048", "decode": "step, B=8, S=513"}
+    for what, (wall, per) in out.items():
+        parts = breakdown(per)
+        busy = sum(parts.values())
+        res[what] = {"wall_us": wall * 1e6, "busy_us": busy,
+                     "busy_share": busy / (wall * 1e6), "device_us": parts}
+        log(f"trace of one hymba {what} ({shape[what]}, 4096-slot cache, "
+            f"kernel path, profiler on): wall_us={wall * 1e6:.3f} "
+            f"device_busy_us={busy:.3f} device_busy_share="
+            f"{busy / (wall * 1e6):.6f} "
+            + " ".join(f"{k}_us={v:.3f}" for k, v in parts.items()))
+    return res
+
+
+def hymba_serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
+    """The Hymba serving path at full width: 16 greedy requests whose
+    prompt lengths are drawn from 512/1280/2048 into a 4096-slot cache
+    (1024-slot rolling caches on the sliding-window layers).
+    flash_attention and selective_scan run once per layer in each prefill,
+    decode_attention once per layer in each decode step."""
+    rng = np.random.default_rng(0)
+    lens = rng.choice(HYMBA_PROMPT_LENS, size=SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    res = serve(torch, core, cfg, params, prompts, kernels,
+                max_len=HYMBA_MAX_LEN, memory_gb=8)
+    st, launches = res["stats"], res["launches"]
+    prefills = st["waves"] + st["refills"]
+    assert launches["flash_attention"] == cfg.num_layers * prefills, (
+        launches, st)
+    assert launches["selective_scan"] == cfg.num_layers * prefills, (
+        launches, st)
+    assert launches["decode_attention"] == (
+        cfg.num_layers * st["decode_steps"]), (launches, st)
+    res["prompt_lens"] = [int(n) for n in lens]
+    log(serve_line("hymba-1.5b", cfg, res) + f"; prompt lengths "
+        f"{res['prompt_lens']}")
+    return res
 
 
 def main() -> int:
@@ -544,8 +891,14 @@ def main() -> int:
         decode_attention as attn_mod
     from repro_torch.kernels.decode_attention.ops import decode_attention_op
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import \
+        flash_attention as flash_mod
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.kmeans import kmeans as kernel_mod
     from repro_torch.kernels.kmeans.ops import kmeans_assign_op
+    from repro_torch.kernels.selective_scan import \
+        selective_scan as scan_mod
+    from repro_torch.kernels.selective_scan.ops import selective_scan_op
     from repro_torch.models.model import build_model
 
     if not torch.cuda.is_available():
@@ -559,12 +912,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:         # one nvcc per source at once
-        list(pool.map(lambda mod: mod.build(), (kernel_mod, attn_mod)))
-    kernel_mod.load()
-    attn_mod.load()
-    log(f"build: kmeans_assign from {SOURCE} and decode_attention from "
-        f"{ATTN_SOURCE} in {time.perf_counter() - t0:.3f} s")
+    mods = (kernel_mod, attn_mod, flash_mod, scan_mod)
+    with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source at once
+        list(pool.map(lambda mod: mod.build(), mods))
+    for mod in mods:
+        mod.load()
+    log(f"build: kmeans_assign from {SOURCE}, decode_attention from "
+        f"{ATTN_SOURCE}, flash_attention from {FLASH_SOURCE} and "
+        f"selective_scan from {SCAN_SOURCE} in "
+        f"{time.perf_counter() - t0:.3f} s")
 
     # -- 2. kernel vs its plain version on the card --------------------------
     f32, bf16 = torch.float32, torch.bfloat16
@@ -660,8 +1016,24 @@ def main() -> int:
     empty_err = check_empty_slots(torch, decode_attention_op,
                                   decode_attention_ref)
 
-    # -- 5. the serving path: Llama-3.2-1B at full width ----------------------
-    cfg = dataclasses.replace(get_config("llama3_2_1b"), decode_kernel=True)
+    # -- 5. flash_attention and selective_scan vs their plain versions -------
+    flash_shapes = [
+        ("hymba refill, window", 1, 2048, 25, 5, 64, bf16, 1024),
+        ("hymba refill, global", 1, 2048, 25, 5, 64, bf16, 0),
+        ("hymba wave, window", 8, 512, 25, 5, 64, bf16, 1024),
+        ("llama wave", 8, 128, 32, 8, 64, bf16, 0),
+        ("ragged G=2", 3, 1000, 6, 3, 32, f32, 0)]
+    flash_rows = [check_flash(torch, flash_attention_op, *shape)
+                  for shape in flash_shapes]
+    scan_shapes = [("hymba refill", 1, 2048, 3200, 16, bf16),
+                   ("hymba wave", 8, 512, 3200, 16, bf16),
+                   ("ragged, h0", 2, 1000, 96, 4, f32, True)]
+    scan_rows = [check_scan(torch, selective_scan_op, *shape)
+                 for shape in scan_shapes]
+
+    # -- 6. the serving path: Llama-3.2-1B at full width ----------------------
+    cfg = get_config("llama3_2_1b")
+    assert cfg.decode_kernel, "the port's config must decode with the kernel"
     t0 = time.perf_counter()
     params = build_model(cfg).init(
         torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -669,11 +1041,37 @@ def main() -> int:
     log(f"params: {cfg.name} {cfg.num_params()} parameters drawn on the "
         f"card in {time.perf_counter() - t0:.3f} s")
     model_row = model_phase(torch, cfg, params)
-    serve = serving_phase(torch, core, cfg, params, attn_mod)
+    llama_kernels = {"decode_attention": attn_mod,
+                     "flash_attention": flash_mod}
+    lserve = serving_phase(torch, core, cfg, params, llama_kernels)
+    del params
+    torch.cuda.empty_cache()
 
-    # -- 6. the kernels line -----------------------------------------------
+    # -- 7. the serving path: Hymba-1.5B at full width ------------------------
+    hcfg = get_config("hymba_1_5b")
+    t0 = time.perf_counter()
+    hparams = build_model(hcfg).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"params: {hcfg.name} {hcfg.num_params()} parameters drawn on the "
+        f"card in {time.perf_counter() - t0:.3f} s")
+    hymba_kernels = {"flash_attention": flash_mod,
+                     "selective_scan": scan_mod,
+                     "decode_attention": attn_mod}
+    hymba_row = hymba_model_phase(torch, hcfg, hparams, hymba_kernels)
+    hymba_steps = hymba_trace(torch, hcfg, hparams)
+    hserve = hymba_serving_phase(torch, core, hcfg, hparams, hymba_kernels)
+
+    # -- 8. the kernels line -----------------------------------------------
     head = rows[len(rows) - len(PAPER_SCENARIOS)]      # scenario i partition
     ahead = attn_rows[1]                                # the serving shape
+    fhead, shead = flash_rows[0], scan_rows[0]          # the hymba refill
+    served = lambda res: {k: res["stats"][k] for k in (
+        "completed", "tokens_served", "decode_steps", "refills", "waves",
+        "p50_latency_s", "p99_latency_s")} | {
+        "wall_s": res["wall_s"], "setup_s": res["setup_s"]}
+    by_path = lambda name: {"llama3_2_1b serving": lserve["launches"].get(
+        name, 0), "hymba_1_5b serving": hserve["launches"].get(name, 0)}
     log(card)
     log(json.dumps({"kernels": [{
         "name": "kmeans_assign", "route": "cuda", "source": SOURCE,
@@ -683,19 +1081,34 @@ def main() -> int:
         "bound_ms": head["bound_us"] / 1e3, "bound_by": head["bound_by"],
         "library_ms": None, "shapes": rows}, {
         "name": "decode_attention", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": ATTN_REPLACES, "launches": serve["launches"],
-        "checked": True,
+        "replaces": ATTN_REPLACES,
+        "launches": sum(by_path("decode_attention").values()),
+        "launches_by_path": by_path("decode_attention"), "checked": True,
         "max_abs_err": max([r["max_abs_err"] for r in attn_rows]
                            + [empty_err]),
         "ms": ahead["kernel_ms"], "plain_ms": ahead["plain_ms"],
         "bound_ms": ahead["bound_us"] / 1e3, "bound_by": ahead["bound_by"],
         "library_ms": ahead["library_ms"], "shapes": attn_rows,
-        "model_check": model_row,
-        "serving": {k: serve["stats"][k] for k in (
-            "completed", "tokens_served", "decode_steps", "refills",
-            "p50_latency_s", "p99_latency_s")} | {
-            "wall_s": serve["wall_s"], "setup_s": serve["setup_s"]}}]}))
-    # -- 7. the last line ---------------------------------------------------
+        "model_check": model_row, "serving": served(lserve)}, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": sum(by_path("flash_attention").values()),
+        "launches_by_path": by_path("flash_attention"), "checked": True,
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "ms": fhead["kernel_ms"], "plain_ms": fhead["plain_ms"],
+        "bound_ms": fhead["bound_us"] / 1e3, "bound_by": fhead["bound_by"],
+        "library_ms": fhead["library_ms"], "shapes": flash_rows,
+        "model_check": hymba_row, "traces": hymba_steps,
+        "serving": served(hserve)}, {
+        "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES,
+        "launches": hserve["launches"]["selective_scan"],
+        "launches_by_path": by_path("selective_scan"), "checked": True,
+        "max_abs_err": max(r["max_abs_err"] for r in scan_rows),
+        "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
+        "bound_ms": shead["bound_us"] / 1e3, "bound_by": shead["bound_by"],
+        "library_ms": None, "shapes": scan_rows}]}))
+    # -- 9. the last line ---------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

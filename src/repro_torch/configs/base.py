@@ -3,7 +3,8 @@
 Every assigned architecture gets one module in ``repro_torch.configs``
 exposing ``CONFIG: ModelConfig``. Shapes are global (same four cells for
 every LM arch). All configs are plain frozen dataclasses so they hash,
-print and diff cleanly. A copy of ``repro/configs/base.py``.
+print and diff cleanly. A copy of ``repro/configs/base.py``, except that
+``decode_kernel`` defaults to True.
 """
 from __future__ import annotations
 
@@ -88,7 +89,10 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # scan-over-layers for compact HLO; unrolled when layer stack heterogeneous
     scan_layers: bool = True
-    decode_kernel: bool = False     # use the decode-attention kernel
+    # decode attention through decode_attention_op: the CUDA kernel on a
+    # CUDA tensor, its plain version on a CPU tensor (the JAX package's
+    # default is off, its plain jnp path); False keeps the inline plain path
+    decode_kernel: bool = True
     remat: str = "full"             # full | dots | none
     # source note for provenance
     source: str = ""

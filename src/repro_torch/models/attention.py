@@ -1,9 +1,13 @@
 """Attention: GQA (full / sliding-window), prefill and decode.
 
 The port of the GQA half of ``repro/models/attention.py``; MLA, encoder
-and cross attention come with the other model families.  Prefill is plain
-torch (query-chunked, fp32 softmax), as the JAX package computes it
-outside any Pallas kernel.
+and cross attention come with the other model families.  Prefill
+attention goes through ``flash_attention_op``, which launches the
+hand-written CUDA kernel on a CUDA tensor and runs its plain version on a
+CPU tensor: fp32 scores, softmax and P.V, the output in the activation
+dtype.  (The JAX package computes prefill in jnp, with bf16 probabilities
+and a bf16 P.V product in bf16 models, and names its Pallas kernel as the
+drop-in for it.)
 
 Decode uses a unified cache layout: (B, Sc, nkv, hd) K/V plus a (B, Sc)
 int32 ``pos`` tensor holding the absolute position stored in each slot
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention_op
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models.common import ParamSpec, apply_rope, linear
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -48,43 +53,15 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return linear(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
-def _attend_chunked(q, k, v, *, q_positions, kv_positions, causal: bool,
-                    window: int, chunk: int = 1024):
-    """q: (B,S,nkv,g,hd); k,v: (B,Skv,nkv,hd). fp32 softmax per q-chunk."""
-    b, s, nkv, g, hd = q.shape
-    scale = hd ** -0.5
-    chunk = min(chunk, s)
-    kf = k.float()
-    outs = []
-    for c0 in range(0, s, chunk):
-        qc = q[:, c0:c0 + chunk]                         # (B,c,nkv,g,hd)
-        qp = q_positions[:, c0:c0 + chunk]               # (B,c)
-        scores = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), kf) * scale
-        rel = qp[:, :, None] - kv_positions[:, None, :]  # (B,c,Skv)
-        mask = torch.ones_like(rel, dtype=torch.bool)
-        if causal:
-            mask &= rel >= 0
-        if window:
-            mask &= rel < window
-        scores = torch.where(mask[:, None, None], scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        outs.append(torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v))
-    return torch.cat(outs, dim=1)
-
-
-def gqa_forward(params, x, *, cfg: ModelConfig, positions, window: int,
-                chunk: int = 1024) -> torch.Tensor:
-    """Full-sequence (prefill) GQA with RoPE."""
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    g = nq // nkv
+def gqa_forward(params, x, *, cfg: ModelConfig, positions,
+                window: int) -> torch.Tensor:
+    """Full-sequence (prefill) GQA with RoPE.  `positions` must be
+    ``arange(S)`` in every row (``model._positions``): the attention
+    kernel places query and kv row i at position i."""
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
-    qg = q.reshape(q.shape[0], q.shape[1], nkv, g, hd)
-    out = _attend_chunked(qg, k, v, q_positions=positions,
-                          kv_positions=positions, causal=True, window=window,
-                          chunk=chunk)
-    out = out.reshape(out.shape[0], out.shape[1], nq, hd)
+    out = flash_attention_op(q, k, v, causal=True, window=window)
     return _out_proj(out, params["wo"])
 
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 class ParamSpec:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]
-    init: str = "normal"        # normal | zeros | ones | scaled
+    init: str = "normal"        # normal | zeros | ones | scaled | mamba_a | mamba_dt
     scale: float = 0.02
     dtype: torch.dtype = torch.bfloat16
 
@@ -62,10 +62,16 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-    if spec.init in ("mamba_a", "mamba_dt"):
-        raise NotImplementedError(
-            f"init {spec.init!r}: the SSM family is not ported yet "
-            f"(ROADMAP.md, 'Model families')")
+    if spec.init == "mamba_a":
+        # A_log: log of 1..N broadcast over d_inner (shape (..., d, N))
+        n = spec.shape[-1]
+        a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        return torch.log(a.expand(spec.shape).contiguous()).to(spec.dtype)
+    if spec.init == "mamba_dt":
+        # dt bias: inverse softplus of uniform in [1e-3, 1e-1]
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device) * (1e-1 - 1e-3) + 1e-3
+        return (u + torch.log(-torch.expm1(-u))).to(spec.dtype)
     if spec.init not in ("normal", "scaled"):
         raise ValueError(f"unknown init {spec.init!r}")
     scale = spec.scale

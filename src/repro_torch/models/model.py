@@ -6,13 +6,19 @@
   decode(p, cache, tokens, positions) -> (logits, cache), cache in place
   cache_spec(batch, max_len)     -> tree of (shape, logical_axes)
 
-The port of ``repro/models/model.py`` for the dense GQA family.  Prefill
-and decode run under ``torch.inference_mode()``.  Decode walks the stacked
-layers in a Python loop and writes each layer's slice of the stacked
-cache in place (``_scan_decode`` in the JAX package carries the cache
-through a scan for the same reason), so `decode` returns the very cache
-objects it was given.  Training (``train_forward``) comes with the
-training slice; the other families raise NotImplementedError.
+The port of ``repro/models/model.py`` for the dense GQA, SSM and hybrid
+families.  Prefill and decode run under ``torch.inference_mode()``.  Cache
+layouts follow the JAX package: the dense and SSM families stack their
+layers' caches, ``{"main": {"kv": {"k","v","pos"}}}`` and ``{"main":
+{"ssm": {"conv","ssm"}}}`` with a leading layer axis; the hybrid (parallel
+SSM) family keeps a tuple of per-layer ``{"kv", "ssm"}`` dicts, each
+layer's KV cache as long as its own window (a rolling ``window``-slot
+cache on sliding-window layers, ``max_len`` slots on global ones).  Decode
+walks the layers in a Python loop and writes each layer's cache in place
+(``_scan_decode`` in the JAX package carries the cache through a scan for
+the same reason), so `decode` returns the very cache objects it was
+given.  Training (``train_forward``) comes with the training slice; the
+other families raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params
 
@@ -79,18 +86,23 @@ def _kv_cache_from_prefill(kv, positions, max_len: int, window: int):
 def _stack_cache_spec(cfg: ModelConfig, num_layers: int, batch: int,
                       max_len: int, window: int):
     """(shape, logical) specs for the stacked decode cache."""
-    spec = attn.init_gqa_cache_spec(cfg, batch, max_len, window)
-    return {"kv": {k: ((num_layers,) + sh, ("layers",) + lg)
-                   for k, (sh, lg) in spec.items()}}
+    out: Dict[str, Any] = {}
+    if cfg.attention == "gqa":
+        spec = attn.init_gqa_cache_spec(cfg, batch, max_len, window)
+        out["kv"] = {k: ((num_layers,) + sh, ("layers",) + lg)
+                     for k, (sh, lg) in spec.items()}
+    if cfg.ssm is not None:
+        spec = ssm_mod.init_ssm_state_spec(cfg, batch)
+        out["ssm"] = {k: ((num_layers,) + sh, ("layers",) + lg)
+                      for k, (sh, lg) in spec.items()}
+    return out
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
     if cfg.is_moe:
         return "MoE"
-    if cfg.attention != "gqa":
+    if cfg.attention not in ("gqa", "none"):
         return f"attention={cfg.attention!r}"
-    if cfg.ssm is not None or cfg.parallel_ssm:
-        return "SSM / hybrid"
     if cfg.encoder_layers:
         return "enc-dec"
     if cfg.vision_tokens:
@@ -109,8 +121,8 @@ def build_model(cfg: ModelConfig) -> Model:
     if kind is not None:
         raise NotImplementedError(
             f"build_model({cfg.name}): the {kind} family is not ported yet "
-            f"(ROADMAP.md, 'Model families'); the port serves dense GQA "
-            f"models")
+            f"(ROADMAP.md, 'Model families'); the port serves dense GQA, "
+            f"SSM and hybrid models")
     specs = tfm.model_specs(cfg)
 
     def init(generator: torch.Generator, device: DeviceLike = None):
@@ -121,8 +133,28 @@ def build_model(cfg: ModelConfig) -> Model:
         x, pos = _embed_inputs(params, batch, cfg)
         h, collected = tfm.decoder_forward(params, x, cfg, positions=pos,
                                            need_cache=True)
-        cache = {"main": {"kv": _kv_cache_from_prefill(
-            collected["main"], pos, max_len, cfg.sliding_window)}}
+        kvs, states = collected["kv"], collected["ssm"]
+        if cfg.parallel_ssm:  # hybrid: per-layer caches, per-layer windows
+            cache: Any = []
+            for i in range(cfg.num_layers):
+                k, v = kvs[i]
+                one = _kv_cache_from_prefill(
+                    (k[None], v[None]), pos, max_len,
+                    tfm._layer_window(cfg, i))
+                cache.append({"kv": {n: t[0] for n, t in one.items()},
+                              "ssm": states[i]})
+            cache = tuple(cache)
+        else:
+            entry: Dict[str, Any] = {}
+            if kvs is not None:
+                entry["kv"] = _kv_cache_from_prefill(
+                    (torch.stack([k for k, _ in kvs]),
+                     torch.stack([v for _, v in kvs])),
+                    pos, max_len, cfg.sliding_window)
+            if states is not None:
+                entry["ssm"] = {n: torch.stack([st[n] for st in states])
+                                for n in ("conv", "ssm")}
+            cache = {"main": entry}
         logits = tfm.lm_logits(params, h[:, -1:], cfg)
         return logits[:, 0], cache
 
@@ -131,16 +163,24 @@ def build_model(cfg: ModelConfig) -> Model:
         """tokens: (B,1) int; positions: (B,) int32 absolute position."""
         x = tfm.embed_tokens(params, tokens, cfg)
         positions = positions.to(torch.int32)
-        stack = cache["main"]["kv"]
         for i in range(cfg.num_layers):
+            if cfg.parallel_ssm:
+                lc, window = cache[i], tfm._layer_window(cfg, i)
+            else:
+                lc = tfm.layer_slice(cache["main"], i)
+                window = cfg.sliding_window
             x = tfm.layer_decode(tfm.layer_slice(params["layers"], i), x,
-                                 {"kv": tfm.layer_slice(stack, i)}, cfg,
-                                 positions=positions,
-                                 window=cfg.sliding_window)
+                                 lc, cfg, positions=positions, window=window)
         logits = tfm.lm_logits(params, x, cfg)
         return logits[:, 0], cache
 
     def cache_spec(batch: int, max_len: int):
+        if cfg.parallel_ssm:
+            return tuple(
+                {"kv": attn.init_gqa_cache_spec(cfg, batch, max_len,
+                                                tfm._layer_window(cfg, i)),
+                 "ssm": ssm_mod.init_ssm_state_spec(cfg, batch)}
+                for i in range(cfg.num_layers))
         return {"main": _stack_cache_spec(cfg, cfg.num_layers, batch,
                                           max_len, cfg.sliding_window)}
 

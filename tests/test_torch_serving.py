@@ -2,10 +2,12 @@
 
 The three engine tests of test_serving.py run on the port with a torch
 stub model (next token = last token + 1 mod vocab), so every assertion is
-exact; `splice_row` is checked on its own; the serving CLI must give
-exactly 6 x 8 tokens (test_system.py::test_serve_end_to_end); and one
-fp32 engine run on ``reduced(llama3_2_1b)`` must produce the JAX engine's
-tokens on carried weights.  Everything runs on the CPU
+exact; `splice_row` is checked on its own, on the stacked and the hybrid
+(per-layer tuple) cache layouts; the serving CLI must give exactly 6 x 8
+tokens (test_system.py::test_serve_end_to_end) for Llama and Hymba, with
+the decode kernel on in the config it builds; and fp32 engine runs on
+``reduced(llama3_2_1b)`` and ``reduced(hymba_1_5b)`` must produce the JAX
+engine's tokens on carried weights.  Everything runs on the CPU
 (``device="cpu"``).
 """
 import os
@@ -168,6 +170,33 @@ def test_splice_row_at_batch_one_copies_the_whole_leaf():
     assert float(cache["last"]) == 7.0
 
 
+def test_splice_row_writes_one_row_of_the_hybrid_tuple_cache():
+    """The hybrid layout: a tuple of per-layer {"kv", "ssm"} dicts, batch
+    on axis 0 of every leaf and each layer with its own Sc.  The row goes
+    into every layer; no other row changes."""
+    def layer(b, sc, fill):
+        return {"kv": {"k": torch.full((b, sc, 2, 4), fill),
+                       "pos": torch.full((b, sc), -1, dtype=torch.int32)},
+                "ssm": {"conv": torch.full((b, 3, 8), fill),
+                        "ssm": torch.full((b, 8, 4), fill)}}
+    cache = (layer(4, 64, 0.0), layer(4, 32, 0.0))
+    row = (layer(1, 64, 1.0), layer(1, 32, 2.0))
+    row[1]["kv"]["pos"] += 7
+    out = splice_row(cache, row, 1)
+    assert out is cache
+    for i, fill in enumerate((1.0, 2.0)):
+        for name in ("k",):
+            t = cache[i]["kv"][name]
+            assert bool((t[1] == fill).all()) and float(t.sum()) == \
+                fill * t[1].numel()
+        for name in ("conv", "ssm"):
+            t = cache[i]["ssm"][name]
+            assert bool((t[1] == fill).all()) and float(t.sum()) == \
+                fill * t[1].numel()
+    assert bool((cache[1]["kv"]["pos"][1] == 6).all())
+    assert bool((cache[1]["kv"]["pos"][[0, 2, 3]] == -1).all())
+
+
 def test_sample_tokens_masks_inactive_rows():
     logits = torch.tensor([[0., 5., 1.], [3., 0., 0.], [0., 0., 9.]])
     active = torch.tensor([True, False, True])
@@ -187,25 +216,59 @@ def test_flatten_params_is_sorted_and_round_trips():
 
 
 # -- the CLI and the real model ---------------------------------------------
-def test_serve_cli_end_to_end_exact_tokens():
-    from repro_torch.launch.serve import main as serve_main
-    stats = serve_main([
-        "--arch", "llama3_2_1b", "--preset", "smoke", "--requests", "6",
+def _serve_cli(arch, monkeypatch):
+    """The CLI at the smoke preset on the CPU -> (stats, configs built)."""
+    import repro_torch.launch.serve as serve
+    built = []
+    real = serve.build_model
+    monkeypatch.setattr(serve, "build_model",
+                        lambda cfg: built.append(cfg) or real(cfg))
+    stats = serve.main([
+        "--arch", arch, "--preset", "smoke", "--requests", "6",
         "--batch", "3", "--prompt-len", "8", "--gen", "8",
         "--max-len", "32", "--device", "cpu"])
+    return stats, built
+
+
+def test_serve_cli_end_to_end_exact_tokens(monkeypatch):
+    """The CLI serves exactly 6 x 8 tokens, and the config it builds has
+    the decode kernel on (on the card `decode_attention_op` launches it;
+    here it runs its plain version)."""
+    stats, built = _serve_cli("llama3_2_1b", monkeypatch)
     assert stats["completed"] == 6
     assert stats["tokens_served"] == 6 * 8  # exact: no phantom row tokens
     assert stats["decode_steps"] > 0
+    assert [c.decode_kernel for c in built] == [True]
+
+
+def test_serve_cli_hymba_smoke(monkeypatch):
+    """``--arch hymba_1_5b --preset smoke --device cpu``: the hybrid family
+    through the same CLI, exact counts, kernel decode on."""
+    stats, built = _serve_cli("hymba_1_5b", monkeypatch)
+    assert stats["completed"] == 6
+    assert stats["tokens_served"] == 6 * 8
+    assert stats["decode_steps"] > 0
+    assert [(c.parallel_ssm, c.decode_kernel) for c in built] == [(True, True)]
+
+
+@pytest.mark.parametrize("preset", ["smoke", "20m", "full"])
+def test_cli_presets_decode_with_the_kernel(preset):
+    from repro_torch.launch.train import scaled_config
+    assert scaled_config("llama3_2_1b", preset).decode_kernel is True
 
 
 def test_serving_imports_nothing_of_jax():
     code = textwrap.dedent("""
         import sys
+        import repro_torch.kernels.flash_attention.ops
+        import repro_torch.kernels.selective_scan.ops
+        import repro_torch.models.ssm
         from repro_torch.launch.serve import main
-        st = main(["--preset", "smoke", "--requests", "2", "--batch", "2",
-                   "--prompt-len", "4", "--gen", "3", "--max-len", "16",
-                   "--device", "cpu"])
-        assert st["tokens_served"] == 6, st
+        for arch in ("llama3_2_1b", "hymba_1_5b", "falcon_mamba_7b"):
+            st = main(["--arch", arch, "--preset", "smoke", "--requests",
+                       "2", "--batch", "2", "--prompt-len", "4", "--gen",
+                       "3", "--max-len", "16", "--device", "cpu"])
+            assert st["tokens_served"] == 6, st
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))
         assert not bad, bad
@@ -218,10 +281,11 @@ def test_serving_imports_nothing_of_jax():
     assert res.stdout.strip().splitlines()[-1] == "ok"
 
 
-def test_engine_tokens_equal_the_jax_engine_on_carried_weights():
-    """fp32 reduced Llama, greedy: the same params (the JAX init, cast to
-    fp32 and carried over) and prompts of mixed lengths (a prefill wave,
-    then refills) give the same tokens on both engines."""
+def _engine_tokens_match(arch, lens, max_len):
+    """fp32 reduced `arch`, greedy: the same params (the JAX init, cast to
+    fp32 and carried over) and prompts of lengths `lens` (a prefill wave,
+    then refills spliced into the batched cache) give the same tokens on
+    the JAX engine and the port's."""
     import jax
     import jax.numpy as jnp
     import repro.core as ref_core
@@ -235,21 +299,20 @@ def test_engine_tokens_equal_the_jax_engine_on_carried_weights():
     from repro_torch.configs.base import reduced
     from repro_torch.models.model import build_model
 
-    jm = ref_build_model(ref_reduced(ref_get_config("llama3_2_1b"),
-                                     dtype="float32"))
-    tm = build_model(reduced(get_config("llama3_2_1b"), dtype="float32"))
+    jm = ref_build_model(ref_reduced(ref_get_config(arch), dtype="float32"))
+    tm = build_model(reduced(get_config(arch), dtype="float32",
+                             decode_kernel=False))
     jp = jax.tree.map(lambda x: x.astype(jnp.float32),
                       jm.init(jax.random.key(0)))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     rng = np.random.default_rng(5)
-    prompts = [rng.integers(0, 256, size=n).astype(np.int32)
-               for n in (6, 6, 9, 7, 6)]
+    prompts = [rng.integers(0, 256, size=n).astype(np.int32) for n in lens]
 
     def serve(session_cls, engine_cls, model, params, **kw):
         with session_cls(**kw) as s:
             s.add_pilots(1, memory_gb=0.25)
             with engine_cls(s, model, params=params, batch_size=2,
-                            max_len=32, page_tokens=4) as eng:
+                            max_len=max_len, page_tokens=4) as eng:
                 eng.deploy()
                 reqs = [eng.submit(p, 6) for p in prompts]
                 eng.drain(timeout=120)
@@ -258,4 +321,16 @@ def test_engine_tokens_equal_the_jax_engine_on_carried_weights():
     want, _ = serve(ref_core.PilotSession, RefEngine, jm, jp)
     got, st = serve(PilotSession, ServingEngine, tm, tp, device="cpu")
     assert got == want
-    assert st["tokens_served"] == 5 * 6 and st["refills"] >= 3
+    assert st["tokens_served"] == len(lens) * 6 and st["refills"] >= 3
+
+
+def test_engine_tokens_equal_the_jax_engine_on_carried_weights():
+    """Reduced Llama (see _engine_tokens_match)."""
+    _engine_tokens_match("llama3_2_1b", (6, 6, 9, 7, 6), max_len=32)
+
+
+def test_hymba_engine_tokens_equal_the_jax_engine_on_carried_weights():
+    """Reduced Hymba on the refill path: prompts past its window of 32, so
+    the spliced rows carry rolled sliding-window caches beside the global
+    layer's and the SSM state (see _engine_tokens_match)."""
+    _engine_tokens_match("hymba_1_5b", (36, 36, 40, 34, 38), max_len=64)
