@@ -14,9 +14,10 @@ kernels' launch counts set to 0 just before and read just after:
   CPU (kernel kmeans_assign);
 - serving Llama-3.2-1B at its published widths (random weights from a
   seed) by ServingEngine on a PilotSession pilot, 16 requests at batch 8
-  (kernels flash_attention in each prefill, decode_attention in each
-  decode step), after a model-level check of the kernel decode path
-  against the plain one and an fp32 run;
+  (kernels flash_attention in each prefill, on the tensor cores since the
+  model runs bf16, decode_attention in each decode step), after a
+  model-level check of the kernel decode path against the plain one and
+  an fp32 run;
 - serving Hymba-1.5B at its published widths (32 layers of parallel
   attention and Mamba heads, sliding window 1024 but for 3 global layers)
   the same way, 16 requests of 512-2048 prompt tokens at batch 8 (kernels
@@ -60,12 +61,16 @@ ATTN_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
                "decode_attention.cu")
 ATTN_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:66"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
-                "flash_attention.cu")
+                "flash_attention_sm90.cu")        # bf16: every model path
+FLASH_FP32_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention.cu")
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:82"
 SCAN_SOURCE = ("src/repro_torch/kernels/selective_scan/csrc/"
                "selective_scan.cu")
 SCAN_REPLACES = "src/repro/kernels/selective_scan/selective_scan.py:55"
 PEAK_BF16_FLOPS = 989e12          # dense tensor-core bf16
+# the SFUs' exp rate: 16 per clock per SM, 132 SMs at the 1.98 GHz boost
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 PARTS, ITERS, D = 8, 5, 8
 # the serving phase: Llama-3.2-1B, batch 8, 1024-slot cache, 16 requests
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_GEN = 8, 1024, 16, 64
@@ -405,9 +410,9 @@ def breakdown(per: dict) -> dict:
     out = {"flash_attention": 0.0, "selective_scan": 0.0,
            "decode_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for name, us in per.items():
-        if "flash_kernel" in name:
+        if re.search(r"flash_tc_kernel|flash_kernel", name):
             out["flash_attention"] += us
-        elif "scan_kernel" in name:
+        elif "scan_chunk_kernel" in name:
             out["selective_scan"] += us
         elif re.search(r"split_kernel|combine_kernel", name):
             out["decode_attention"] += us
@@ -486,12 +491,22 @@ def model_phase(torch, cfg, params) -> dict:
             "step_us": parts, "step_wall_us": wall * 1e6}
 
 
+def zero_counts(kernels: dict) -> None:
+    """`kernels` maps a name to (kernel module, launch counter attribute)."""
+    for mod, attr in kernels.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(kernels: dict) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in kernels.items()}
+
+
 def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
           memory_gb: float):
     """ServingEngine on a one-pilot PilotSession on the card: greedy
     SERVE_GEN tokens for each prompt at batch SERVE_BATCH.  `kernels` maps
-    a name to a kernel module: each LAUNCHES is set to 0 just before the
-    requests go in and read just after they drained.  Returns the engine's
+    a name to (kernel module, counter): each count is set to 0 just before
+    the requests go in and read just after they drained.  Returns the engine's
     stats, the launches, the wall seconds, the deploy+load seconds and the
     device types the runtime's params and cache were seen on."""
     from repro_torch.models.common import tree_leaves
@@ -524,13 +539,12 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
                                        "within 300 s")
                 time.sleep(0.01)
             setup = time.perf_counter() - t0
-            for mod in kernels.values():
-                mod.LAUNCHES = 0
+            zero_counts(kernels)
             t0 = time.perf_counter()
             reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
             eng.drain(timeout=900)
             wall = time.perf_counter() - t0
-            launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+            launches = read_counts(kernels)
             outs = [r.result(timeout=10) for r in reqs]
             st = eng.stats()
     n = len(prompts)
@@ -575,6 +589,7 @@ def serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
         cfg.num_layers * st["decode_steps"]), (launches, st)
     assert launches["flash_attention"] == cfg.num_layers * prefills, (
         launches, st)
+    assert launches["flash_attention_fp32"] == 0, launches   # bf16 model
     log(serve_line("llama3.2-1b", cfg, res))
     return res
 
@@ -621,12 +636,14 @@ def sdpa_prefill(torch, q, k, v, causal, window):
 
 
 def check_flash(torch, op, name, b, s, nq, nkv, h, dtype, window,
-                causal=True) -> dict:
+                causal=True, timed=True) -> dict:
     """flash_attention kernel vs its plain version on the same
-    card-resident inputs.  Tolerances: fp32 atol/rtol 2e-5 (as
+    card-resident inputs (bf16 runs on the tensor-core kernel, fp32 on the
+    CUDA-core one).  Tolerances: fp32 atol/rtol 2e-5 (as
     tests/test_kernels.py); bf16 atol/rtol 2e-2 against the fp32 plain
-    result cast to bf16.  Times: kernel (CUDA-graph replay and eager),
-    plain version and SDPA, each over enough input copies to exceed L2."""
+    result cast to bf16.  With `timed`, times: kernel (CUDA-graph replay
+    and eager), plain version and SDPA, each over enough input copies to
+    exceed L2."""
     g = torch.Generator(device="cuda").manual_seed(5)
     args = tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
                  for shape in ((b, s, nq, h), (b, s, nkv, h), (b, s, nkv, h)))
@@ -639,6 +656,15 @@ def check_flash(torch, op, name, b, s, nq, nkv, h, dtype, window,
     err = (got.float() - want).abs()
     assert bool((err <= tol + tol * want.abs()).all()), (
         f"flash_attention {name}: max |err| {float(err.max())}")
+    route = "tensor cores" if dtype == torch.bfloat16 else "cuda cores"
+    if not timed:
+        log(f"flash_attention check {name} B={b} S={s} {nq}/{nkv} H={h} "
+            f"{str(dtype).split('.')[-1]} window={window} causal={causal} "
+            f"({route}): max_abs_err={float(err.max()):.3e}")
+        return {"shape": name, "b": b, "s": s, "nq": nq, "nkv": nkv, "h": h,
+                "window": window, "causal": causal, "route": route,
+                "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": float(err.max())}
     lib = sdpa_prefill(torch, *args, causal, window)
     lib_err = float((lib.float() - want).abs().max())
     assert lib_err <= 5e-2, f"SDPA disagrees on {name}: {lib_err}"
@@ -659,14 +685,14 @@ def check_flash(torch, op, name, b, s, nq, nkv, h, dtype, window,
     b_s, b_by, pairs = flash_bound(b, s, s, nq, nkv, h, esize, causal,
                                    window)
     row = {"shape": name, "b": b, "s": s, "nq": nq, "nkv": nkv, "h": h,
-           "window": window, "causal": causal,
+           "window": window, "causal": causal, "route": route,
            "dtype": str(dtype).split(".")[-1], "kernel_ms": ms,
            "kernel_eager_ms": eager, "plain_ms": plain,
            "library_ms": library, "bound_us": b_s * 1e6, "bound_by": b_by,
            "pairs": pairs, "max_abs_err": float(err.max()),
            "library_max_abs_err": lib_err}
     log(f"flash_attention check {name} B={b} S={s} {nq}/{nkv} H={h} "
-        f"{row['dtype']} window={window}: kernel_ms={ms:.6f} "
+        f"{row['dtype']} window={window} ({route}): kernel_ms={ms:.6f} "
         f"kernel_eager_ms={eager:.6f} plain_ms={plain:.6f} "
         f"sdpa_ms={library:.6f} bound_us={b_s * 1e6:.4f} ({b_by}) "
         f"max_abs_err={row['max_abs_err']:.3e} sdpa_err={lib_err:.3e}")
@@ -723,6 +749,7 @@ def check_scan(torch, op, name, b, s, di, n, dtype, h0=False) -> dict:
     plain = event_ms(torch, rotating(sets, lambda *a: op(*a, impl="ref")),
                      reps=2)
     b_s, b_by = scan_bound(b, s, di, n, esize)
+    sfu_us = b * s * di * n / PEAK_EXP_PER_S * 1e6   # one exp per (b,t,d,n)
     row = {"shape": name, "b": b, "s": s, "di": di, "n": n, "h0": h0,
            "dtype": str(dtype).split(".")[-1], "kernel_ms": ms,
            "kernel_eager_ms": eager, "plain_ms": plain, "library_ms": None,
@@ -732,7 +759,8 @@ def check_scan(torch, op, name, b, s, di, n, dtype, h0=False) -> dict:
     log(f"selective_scan check {name} B={b} S={s} Di={di} N={n} "
         f"{row['dtype']} h0={h0}: kernel_ms={ms:.6f} "
         f"kernel_eager_ms={eager:.6f} plain_ms={plain:.6f} "
-        f"bound_us={b_s * 1e6:.4f} ({b_by}) y_err={row['max_abs_err']:.3e} "
+        f"bound_us={b_s * 1e6:.4f} ({b_by}) sfu_floor_us={sfu_us:.4f} "
+        f"y_err={row['max_abs_err']:.3e} "
         f"h_end_err={row['h_end_max_abs_err']:.3e}")
     return row
 
@@ -779,22 +807,21 @@ def hymba_model_phase(torch, cfg, params, kernels: dict) -> dict:
     attn_models.flash_attention_op = functools.partial(real[0], impl="ref")
     ssm_models.selective_scan_op = functools.partial(real[1], impl="ref")
     try:
-        for mod in kernels.values():
-            mod.LAUNCHES = 0
+        zero_counts(kernels)
         p32 = tree_map(lambda t: t.float(), params)
         want32, feed = run(m32, p32)
         del p32
         got_p, _ = run(plain, params, feed)
-        plain_launches = {k: m.LAUNCHES for k, m in kernels.items()}
+        plain_launches = read_counts(kernels)
     finally:
         attn_models.flash_attention_op, ssm_models.selective_scan_op = real
     assert not any(plain_launches.values()), (
         f"the plain path launched kernels: {plain_launches}")
-    for mod in kernels.values():
-        mod.LAUNCHES = 0
+    zero_counts(kernels)
     got_k, _ = run(kern, params, feed)
-    launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    launches = read_counts(kernels)
     assert launches["flash_attention"] == cfg.num_layers, launches
+    assert launches["flash_attention_fp32"] == 0, launches
     assert launches["selective_scan"] == cfg.num_layers, launches
     assert launches["decode_attention"] == 8 * cfg.num_layers, launches
     d = max(float((a - c).abs().max()) for a, c in zip(got_k, got_p))
@@ -873,6 +900,7 @@ def hymba_serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
         launches, st)
     assert launches["decode_attention"] == (
         cfg.num_layers * st["decode_steps"]), (launches, st)
+    assert launches["flash_attention_fp32"] == 0, launches   # bf16 model
     res["prompt_lens"] = [int(n) for n in lens]
     log(serve_line("hymba-1.5b", cfg, res) + f"; prompt lengths "
         f"{res['prompt_lens']}")
@@ -912,14 +940,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    mods = (kernel_mod, attn_mod, flash_mod, scan_mod)
-    with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source at once
-        list(pool.map(lambda mod: mod.build(), mods))
-    for mod in mods:
-        mod.load()
+    builds = (kernel_mod.build, attn_mod.build, flash_mod.build_tc,
+              flash_mod.build, scan_mod.build)
+    loads = (kernel_mod.load, attn_mod.load, flash_mod.load_tc,
+             flash_mod.load, scan_mod.load)
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source
+        list(pool.map(lambda build: build(), builds))
+    for load in loads:
+        load()
     log(f"build: kmeans_assign from {SOURCE}, decode_attention from "
-        f"{ATTN_SOURCE}, flash_attention from {FLASH_SOURCE} and "
-        f"selective_scan from {SCAN_SOURCE} in "
+        f"{ATTN_SOURCE}, flash_attention from {FLASH_SOURCE} (bf16) and "
+        f"{FLASH_FP32_SOURCE} (fp32), selective_scan from {SCAN_SOURCE} in "
         f"{time.perf_counter() - t0:.3f} s")
 
     # -- 2. kernel vs its plain version on the card --------------------------
@@ -1025,6 +1056,16 @@ def main() -> int:
         ("ragged G=2", 3, 1000, 6, 3, 32, f32, 0)]
     flash_rows = [check_flash(torch, flash_attention_op, *shape)
                   for shape in flash_shapes]
+    # the tensor-core kernel's other widths and edges, checked untimed
+    flash_rows += [check_flash(torch, flash_attention_op, *shape, timed=False)
+                   for shape in (
+        ("starcoder2 H=128 G=9", 2, 384, 36, 4, 128, bf16, 0),
+        ("H=32", 2, 256, 8, 2, 32, bf16, 0),
+        ("ragged, window 100", 2, 1000, 6, 3, 64, bf16, 100),
+        ("G=1", 2, 300, 8, 8, 64, bf16, 0),
+        ("non-causal", 2, 200, 4, 2, 64, bf16, 0, False),
+        ("Sq=1", 4, 1, 8, 2, 64, bf16, 0),
+        ("H=20 rows of 40 bytes", 2, 200, 4, 4, 20, bf16, 0, False))]
     scan_shapes = [("hymba refill", 1, 2048, 3200, 16, bf16),
                    ("hymba wave", 8, 512, 3200, 16, bf16),
                    ("ragged, h0", 2, 1000, 96, 4, f32, True)]
@@ -1041,8 +1082,9 @@ def main() -> int:
     log(f"params: {cfg.name} {cfg.num_params()} parameters drawn on the "
         f"card in {time.perf_counter() - t0:.3f} s")
     model_row = model_phase(torch, cfg, params)
-    llama_kernels = {"decode_attention": attn_mod,
-                     "flash_attention": flash_mod}
+    llama_kernels = {"decode_attention": (attn_mod, "LAUNCHES"),
+                     "flash_attention": (flash_mod, "TC_LAUNCHES"),
+                     "flash_attention_fp32": (flash_mod, "LAUNCHES")}
     lserve = serving_phase(torch, core, cfg, params, llama_kernels)
     del params
     torch.cuda.empty_cache()
@@ -1055,9 +1097,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"params: {hcfg.name} {hcfg.num_params()} parameters drawn on the "
         f"card in {time.perf_counter() - t0:.3f} s")
-    hymba_kernels = {"flash_attention": flash_mod,
-                     "selective_scan": scan_mod,
-                     "decode_attention": attn_mod}
+    hymba_kernels = {"flash_attention": (flash_mod, "TC_LAUNCHES"),
+                     "flash_attention_fp32": (flash_mod, "LAUNCHES"),
+                     "selective_scan": (scan_mod, "LAUNCHES"),
+                     "decode_attention": (attn_mod, "LAUNCHES")}
     hymba_row = hymba_model_phase(torch, hcfg, hparams, hymba_kernels)
     hymba_steps = hymba_trace(torch, hcfg, hparams)
     hserve = hymba_serving_phase(torch, core, hcfg, hparams, hymba_kernels)
@@ -1094,6 +1137,8 @@ def main() -> int:
         "replaces": FLASH_REPLACES,
         "launches": sum(by_path("flash_attention").values()),
         "launches_by_path": by_path("flash_attention"), "checked": True,
+        "fp32_source": FLASH_FP32_SOURCE,
+        "fp32_launches": sum(by_path("flash_attention_fp32").values()),
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "ms": fhead["kernel_ms"], "plain_ms": fhead["plain_ms"],
         "bound_ms": fhead["bound_us"] / 1e3, "bound_by": fhead["bound_by"],

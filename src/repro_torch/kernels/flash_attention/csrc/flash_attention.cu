@@ -1,35 +1,36 @@
-// Causal / sliding-window GQA self-attention (forward), for Hopper (sm_90a).
+// Causal / sliding-window GQA self-attention (forward) in fp32 on the CUDA
+// cores of Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/flash_attention/flash_attention.py::flash_attention
-// (same function, not the same blocking):
+// (same function, not the same blocking) for fp32 inputs; bf16 inputs, which
+// every model path gives, go to the tensor-core kernel in
+// flash_attention_sm90.cu (the wrapper routes by dtype).  TF32 tensor cores
+// would keep about three decimal digits, against the fp32 tolerance of 2e-5
+// that the parity tests with the JAX package hold.
 //
-//   q (B,Sq,Nq,H); k, v (B,Skv,Nkv,H); G = Nq/Nkv query heads per kv head
-//   query row i sits at position i, kv row j at position j (the implicit
-//   iota of the Pallas kernel and its ref); (i, j) is valid iff
+//   q (B,Sq,Nq,H); k, v (B,Skv,Nkv,H) fp32; G = Nq/Nkv query heads per kv
+//   head; query row i sits at position i, kv row j at position j (the
+//   implicit iota of the Pallas kernel and its ref); (i, j) is valid iff
 //   (not causal or i - j >= 0) and (window <= 0 or i - j < window)
 //   out[b,i,hq] = softmax_j(q[b,i,hq] . k[b,j,hq/G] * H^-0.5 over valid j)
 //                 @ v[b,:,hq/G]
-//   fp32 scores, online softmax and P.V sums; fp32 or bf16 inputs, the
-//   output in q's dtype.  A row with no valid j gets 0, as the Pallas
-//   kernel writes (its l is clamped to 1e-30); causal self-attention never
-//   has one.
+//   fp32 scores, online softmax and P.V sums.  A row with no valid j gets
+//   0, as the Pallas kernel writes (its l is clamped to 1e-30); causal
+//   self-attention never has one.
 //
-// Bound on an H100 SXM: the operations at the prefill shapes.  4*H FLOP
-// per valid (q row, kv row, query head) pair against q, k, v and the output
-// read or written once: at Hymba's prefill (B=1, S=2048, 25/5 heads, H=64,
-// bf16, window 1024) 10.1 GFLOP, 10.2 us at 989 TFLOP/s, against 15.7 MB,
-// 4.7 us at 3.35 TB/s.
+// Bound on an H100 SXM: the operations, at the fp32 CUDA-core peak of 67
+// TFLOP/s: 4*H FLOP per valid (q row, kv row, query head) pair, against q,
+// k, v and the output read or written once.
 //
-// Design (simple and right first: CUDA cores, no tensor cores yet).  One
-// block of 256 threads per (64-row query tile, query head, batch row).
-//   - The Q tile is loaded once into shared memory as fp32; 64-row K and V
-//     tiles of the head's kv head follow one at a time (16-byte global
-//     loads when the rows allow), converted to fp32.
+// Design.  One block of 256 threads per (64-row query tile, query head,
+// batch row).
+//   - The Q tile is loaded once into shared memory; 64-row K and V tiles of
+//     the head's kv head follow one at a time (16-byte global loads when the
+//     rows allow).
 //   - The KV loop runs only over the tiles the causal and window band can
 //     reach from the query tile; this takes the place of the Pallas
-//     kernel's pl.when skip over fully masked blocks.  A window of 1024
-//     over S = 2048 visits about half the tiles causal attention would.
+//     kernel's pl.when skip over fully masked blocks.
 //   - Scores: each thread owns a 4x4 register tile (rows ty+16i, columns
 //     tx+16j), read as float4s from rows padded to H+4 floats so that the
 //     column reads spread over the banks.
@@ -47,7 +48,6 @@
 // with ctypes (repro_torch/kernels/flash_attention/flash_attention.py).
 // Nothing here allocates or synchronises.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <atomic>
 #include <cfloat>
@@ -62,14 +62,6 @@ constexpr int kBK = 64;                         // kv rows per tile
 constexpr float kNegInf = -0.7f * FLT_MAX;      // ref.py's NEG_INF
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Shared-memory layout for head dims up to kHD (32, 64 or 128).
 template <int kHD>
@@ -87,12 +79,12 @@ struct Layout {
 // into a row-major fp32 tile with row stride `stride`: zero past `s` and
 // past `h`.  kVec: H holds whole 16-byte vectors and the base is 16-byte
 // aligned, so rows load as uint4.
-template <typename T, int kHD, bool kVec>
-__device__ __forceinline__ void load_tile(const T* __restrict__ base, int r0,
-                                          int s, int nh, int head, int h,
-                                          float* dst, int stride) {
+template <int kHD, bool kVec>
+__device__ __forceinline__ void load_tile(const float* __restrict__ base,
+                                          int r0, int s, int nh, int head,
+                                          int h, float* dst, int stride) {
   if constexpr (kVec) {
-    constexpr int V = 16 / sizeof(T);
+    constexpr int V = 4;
     constexpr int kVecs = kHD / V;
     for (int i = threadIdx.x; i < 64 * kVecs; i += kThreads) {
       const int r = i / kVecs, d = (i - r * kVecs) * V;
@@ -100,9 +92,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ base, int r0,
       if (r0 + r < s && d < h) {
         const uint4 raw = *reinterpret_cast<const uint4*>(
             base + ((size_t)(r0 + r) * nh + head) * h + d);
-        const T* e = reinterpret_cast<const T*>(&raw);
+        const float* e = reinterpret_cast<const float*>(&raw);
 #pragma unroll
-        for (int j = 0; j < V; ++j) vals[j] = to_f32(e[j]);
+        for (int j = 0; j < V; ++j) vals[j] = e[j];
       } else {
 #pragma unroll
         for (int j = 0; j < V; ++j) vals[j] = 0.f;
@@ -115,7 +107,7 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ base, int r0,
       const int r = i / kHD, d = i - r * kHD;
       dst[r * stride + d] =
           (r0 + r < s && d < h)
-              ? to_f32(base[((size_t)(r0 + r) * nh + head) * h + d])
+              ? base[((size_t)(r0 + r) * nh + head) * h + d]
               : 0.f;
     }
   }
@@ -154,12 +146,12 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-template <typename T, int kHD, bool kVec>
+template <int kHD, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, int sq, int skv, int nq, int nkv,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, int sq, int skv, int nq, int nkv,
              int h, int causal, int window, float scale,
-             T* __restrict__ out) {
+             float* __restrict__ out) {
   using L = Layout<kHD>;
   constexpr int kDPT = L::kDPT;
   extern __shared__ float4 smem4[];
@@ -174,7 +166,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = hq / (nq / nkv);
   const int q0 = qt * kBQ;
 
-  load_tile<T, kHD, kVec>(q + (size_t)b * sq * nq * h, q0, sq, nq, hq, h, qs,
+  load_tile<kHD, kVec>(q + (size_t)b * sq * nq * h, q0, sq, nq, hq, h, qs,
                           L::kStride);
 
   float m[4], l[4], acc[4][kDPT];
@@ -191,13 +183,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int k_hi = skv - 1;
   if (causal) k_hi = min(k_hi, q_last);
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const T* kb = k + (size_t)b * skv * nkv * h;
-  const T* vb = v + (size_t)b * skv * nkv * h;
+  const float* kb = k + (size_t)b * skv * nkv * h;
+  const float* vb = v + (size_t)b * skv * nkv * h;
 
   for (int k0 = (k_lo / kBK) * kBK; k0 <= k_hi; k0 += kBK) {
     __syncthreads();   // the previous tile is consumed; Q is visible
-    load_tile<T, kHD, kVec>(kb, k0, skv, nkv, hk, h, ks, L::kStride);
-    load_tile<T, kHD, kVec>(vb, k0, skv, nkv, hk, h, vs, kHD);
+    load_tile<kHD, kVec>(kb, k0, skv, nkv, hk, h, ks, L::kStride);
+    load_tile<kHD, kVec>(vb, k0, skv, nkv, hk, h, vs, kHD);
     __syncthreads();
 
     // scores: rows ty+16i, columns tx+16j
@@ -295,16 +287,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + ty + 16 * i;
     if (qp >= sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* orow = out + (((size_t)b * sq + qp) * nq + hq) * h;
+    float* orow = out + (((size_t)b * sq + qp) * nq + hq) * h;
 #pragma unroll
     for (int e = 0; e < kDPT; ++e) {
       const int d = tx * kDPT + e;
-      if (d < h) store(orow + d, acc[i][e] / li);
+      if (d < h) orow[d] = acc[i][e] / li;
     }
   }
 }
 
-template <typename T, int kHD, bool kVec>
+template <int kHD, bool kVec>
 int launch(const void* q, const void* k, const void* v, int b, int sq,
            int skv, int nq, int nkv, int h, int causal, int window,
            float scale, void* out, cudaStream_t stream) {
@@ -318,7 +310,7 @@ int launch(const void* q, const void* k, const void* v, int b, int sq,
     if (e != cudaSuccess) return (int)e;
     const unsigned long long bit = 1ull << (dev & 63);
     if (!(allowed.load() & bit)) {
-      e = cudaFuncSetAttribute(flash_kernel<T, kHD, kVec>,
+      e = cudaFuncSetAttribute(flash_kernel<kHD, kVec>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
       if (e != cudaSuccess) return (int)e;
@@ -326,58 +318,53 @@ int launch(const void* q, const void* k, const void* v, int b, int sq,
     }
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, nq, b);
-  flash_kernel<T, kHD, kVec><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), sq, skv, nq, nkv, h, causal, window, scale,
-      static_cast<T*>(out));
+  flash_kernel<kHD, kVec><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), sq, skv, nq, nkv, h, causal, window, scale,
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kHD>
+template <int kHD>
 int launch_vec(const void* q, const void* k, const void* v, int b, int sq,
                int skv, int nq, int nkv, int h, int causal, int window,
                float scale, void* out, cudaStream_t stream) {
-  const bool vec = (h * (int)sizeof(T)) % 16 == 0 &&
+  const bool vec = h % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  return vec ? launch<T, kHD, true>(q, k, v, b, sq, skv, nq, nkv, h, causal,
-                                    window, scale, out, stream)
-             : launch<T, kHD, false>(q, k, v, b, sq, skv, nq, nkv, h, causal,
-                                     window, scale, out, stream);
+  return vec ? launch<kHD, true>(q, k, v, b, sq, skv, nq, nkv, h, causal,
+                                 window, scale, out, stream)
+             : launch<kHD, false>(q, k, v, b, sq, skv, nq, nkv, h, causal,
+                                  window, scale, out, stream);
 }
 
-template <typename T>
 int launch_width(const void* q, const void* k, const void* v, int b, int sq,
                  int skv, int nq, int nkv, int h, int causal, int window,
                  float scale, void* out, cudaStream_t stream) {
   if (h <= 32)
-    return launch_vec<T, 32>(q, k, v, b, sq, skv, nq, nkv, h, causal, window,
-                             scale, out, stream);
+    return launch_vec<32>(q, k, v, b, sq, skv, nq, nkv, h, causal, window,
+                          scale, out, stream);
   if (h <= 64)
-    return launch_vec<T, 64>(q, k, v, b, sq, skv, nq, nkv, h, causal, window,
-                             scale, out, stream);
-  return launch_vec<T, 128>(q, k, v, b, sq, skv, nq, nkv, h, causal, window,
-                            scale, out, stream);
+    return launch_vec<64>(q, k, v, b, sq, skv, nq, nkv, h, causal, window,
+                          scale, out, stream);
+  return launch_vec<128>(q, k, v, b, sq, skv, nq, nkv, h, causal, window,
+                         scale, out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (b,sq,nq,h), k/v (b,skv,nkv,h) and out (b,sq,nq,h) contiguous, of one
-// dtype (is_bf16 picks bf16, else fp32); nq a multiple of nkv; 1 <= h <= 128.
-// Returns cudaGetLastError() after the launch.
+// q (b,sq,nq,h), k/v (b,skv,nkv,h) and out (b,sq,nq,h) contiguous fp32; nq
+// a multiple of nkv; 1 <= h <= 128.  Returns cudaGetLastError() after the
+// launch.
 int flash_attention_launch(const void* q, const void* k, const void* v, int b,
                            int sq, int skv, int nq, int nkv, int h,
-                           int causal, int window, int is_bf16, float scale,
-                           void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_width<__nv_bfloat16>(q, k, v, b, sq, skv, nq, nkv, h,
-                                       causal, window, scale, out, s);
-  return launch_width<float>(q, k, v, b, sq, skv, nq, nkv, h, causal, window,
-                             scale, out, s);
+                           int causal, int window, float scale, void* out,
+                           void* stream) {
+  return launch_width(q, k, v, b, sq, skv, nq, nkv, h, causal, window, scale,
+                      out, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {

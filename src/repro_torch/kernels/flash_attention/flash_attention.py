@@ -1,18 +1,22 @@
-"""CUDA kernel for causal / sliding-window GQA self-attention (forward),
+"""CUDA kernels for causal / sliding-window GQA self-attention (forward),
 built and bound at first use.
 
-Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/
-flash_attention.py::flash_attention``.  The source is
-``csrc/flash_attention.cu`` (its header note gives the design and the
-bound on an H100): one block per (64-row query tile, query head, batch
-row), K/V tiles through shared memory, online softmax in fp32, the KV loop
-bounded to the tiles the causal and window band reaches.  ``nvcc``
-compiles it for ``sm_90a`` into a shared library under the repository's
-``build/kernels/`` the first time a CUDA tensor reaches `flash_attention`
-(``kernels/_nvcc.py``); the library is loaded with ``ctypes``.  Nothing is
-compiled at module import.
+Replace the Pallas TPU kernel ``repro/kernels/flash_attention/
+flash_attention.py::flash_attention``.  The route follows the dtype:
+- bfloat16 (every model path) runs on the tensor cores:
+  ``csrc/flash_attention_sm90.cu``, wgmma for Q.K^T and P.V, K/V tiles in
+  a cp.async ring, online softmax on the accumulator registers;
+- float32 runs on the CUDA cores: ``csrc/flash_attention.cu``, fp32
+  throughout (TF32 would break the fp32 tolerance of 2e-5).
+Neither is a fallback for the other: a failed build or launch of either
+raises.  Each source's header note gives its design and bound on an H100.
+``nvcc`` compiles each for ``sm_90a`` into a shared library under the
+repository's ``build/kernels/`` the first time a CUDA tensor of its dtype
+reaches `flash_attention` (``kernels/_nvcc.py``); the libraries are loaded
+with ``ctypes``.  Nothing is compiled at module import.
 
-`LAUNCHES` counts the wrapper's kernel launches (one per call).
+`TC_LAUNCHES` counts the tensor-core kernel's launches and `LAUNCHES` the
+CUDA-core kernel's (one per call, on the route taken).
 """
 from __future__ import annotations
 
@@ -24,21 +28,34 @@ import torch
 
 from repro_torch.kernels import _nvcc
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"            # fp32, CUDA cores
+TC_SOURCE = CSRC / "flash_attention_sm90.cu"    # bf16, tensor cores
 MAX_HEAD_DIM = 128
 
-# wrapper launches; read by chip_smoke.py to show the main path ran here
+# wrapper launches per route; read by chip_smoke.py to show the main path
+# ran here
 LAUNCHES = 0
+TC_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_float]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_float]
         + [ctypes.c_void_p] * 2)
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+
+
+def _bind_tc(lib: ctypes.CDLL) -> None:
+    lib.flash_attention_tc_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        + [ctypes.c_void_p] * 2)
+    lib.flash_attention_tc_launch.restype = ctypes.c_int
+    lib.flash_attention_tc_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_tc_error_string.restype = ctypes.c_char_p
 
 
 def build() -> Path:
@@ -47,9 +64,19 @@ def build() -> Path:
     return _nvcc.build(SOURCE, "flash_attention")
 
 
+def build_tc() -> Path:
+    """Compile csrc/flash_attention_sm90.cu likewise."""
+    return _nvcc.build(TC_SOURCE, "flash_attention_sm90")
+
+
 def load() -> ctypes.CDLL:
-    """Build if needed and bind the C entry points (idempotent)."""
+    """Build if needed and bind the CUDA-core kernel (idempotent)."""
     return _nvcc.load(SOURCE, "flash_attention", _bind)
+
+
+def load_tc() -> ctypes.CDLL:
+    """Build if needed and bind the tensor-core kernel (idempotent)."""
+    return _nvcc.load(TC_SOURCE, "flash_attention_sm90", _bind_tc)
 
 
 def _check(q, k, v) -> None:
@@ -91,23 +118,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B,Sq,Nq,H); k, v (B,Skv,Nkv,H), contiguous on one CUDA device,
     all float32 or all bfloat16 -> (B,Sq,Nq,H) in q's dtype.  Query row i
-    sits at position i and kv row j at position j."""
-    global LAUNCHES
+    sits at position i and kv row j at position j.  bfloat16 runs on the
+    tensor cores, float32 on the CUDA cores."""
+    global LAUNCHES, TC_LAUNCHES
     _check(q, k, v)
-    lib = load()
+    tc = q.dtype == torch.bfloat16
+    lib = load_tc() if tc else load()
+    launch = lib.flash_attention_tc_launch if tc else lib.flash_attention_launch
     b, sq, nq, h = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), b, sq, skv, nq, nkv, h,
-            int(causal), int(window), int(q.dtype == torch.bfloat16),
-            h ** -0.5, out.data_ptr(), stream)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, sq, skv, nq,
+                     nkv, h, int(causal), int(window), h ** -0.5,
+                     out.data_ptr(), stream)
     if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
+        errstr = (lib.flash_attention_tc_error_string if tc
+                  else lib.flash_attention_error_string)
         raise RuntimeError(f"flash_attention: launch failed with CUDA error "
-                           f"{err} ({msg})")
+                           f"{err} ({errstr(err).decode()})")
     with _count_lock:
-        LAUNCHES += 1
+        if tc:
+            TC_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return out

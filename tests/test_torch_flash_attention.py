@@ -6,9 +6,13 @@ tests/test_kernels.py runs it on the CPU), over the grid of
 test_kernels.py (S, heads, H, causal, window), plus G = 5 query heads per
 kv head (Hymba's 25/5) and ragged S, which only the oracle takes (the
 Pallas kernel needs S divisible by its block).  Tolerances: atol/rtol 2e-5
-in fp32 and 2e-2 in bf16, as test_kernels.py.  The CUDA kernel itself runs
-only on a card: the `gpu` tests import nothing of JAX, so they also run
-where JAX is absent (``pytest --noconftest -m gpu``).
+in fp32 and 2e-2 in bf16, as test_kernels.py.  The plain attention with P
+rounded to bf16 before P.V, as the tensor-core kernel rounds it, is held to
+the fp32 plain result at the bf16 tolerance here, and the tensor-core
+kernel to it on the card within 2 bf16 ulps + 1e-3.  The CUDA kernels
+themselves run only on a card (bf16 on the tensor cores, fp32 on the CUDA
+cores): the `gpu` tests import nothing of JAX, so they also run where JAX
+is absent (``pytest --noconftest -m gpu``).
 """
 import itertools
 
@@ -126,31 +130,110 @@ def test_window_drops_what_lies_behind_it():
     assert not np.allclose(o1[:, 40:55], o2[:, 40:55])
 
 
+def _launches():
+    return cuda_mod.LAUNCHES, cuda_mod.TC_LAUNCHES
+
+
 def test_auto_on_cpu_runs_the_plain_version_and_launches_nothing():
     args = _inputs(2, 64, 8, 2, 32, seed=6)
-    before = cuda_mod.LAUNCHES
+    before = _launches()
     got = _port(args, impl="auto", window=16)
-    assert cuda_mod.LAUNCHES == before
+    assert _launches() == before
     assert torch.equal(got, _port(args, impl="ref", window=16))
 
 
 @pytest.mark.parametrize("impl", ["cuda", "bogus"])
 def test_cuda_or_unknown_impl_on_a_cpu_tensor_raises(impl):
     args = _inputs(1, 32, 4, 2, 16, seed=7)
-    before = cuda_mod.LAUNCHES
+    before = _launches()
     with pytest.raises(ValueError):
         _port(args, impl=impl)
-    assert cuda_mod.LAUNCHES == before
+    assert _launches() == before
+
+
+def _rounded_p_attention(q, k, v, causal=True, window=0, block=64):
+    """The plain attention as the tensor-core kernel rounds it: fp32 scores,
+    an online softmax over kv tiles of `block` rows taken in order, each
+    tile's weights exp(s - running max) rounded to bf16 before P.V, the row
+    sums taken over the unrounded weights; a row with no valid kv row gets
+    0; output in bf16.  Runs on the inputs' device."""
+    b, sq, nq, h = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    dev = q.device
+    qg = q.float().reshape(b, sq, nkv, nq // nkv, h)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (h ** -0.5)
+    rel = (torch.arange(sq, device=dev)[:, None]
+           - torch.arange(skv, device=dev)[None, :])
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= rel >= 0
+    if window:
+        mask &= rel < window
+    s = torch.where(mask, s, float("-inf"))
+    m = torch.full(s.shape[:-1], float("-inf"), device=dev)
+    l = torch.zeros_like(m)
+    o = torch.zeros(s.shape[:-1] + (h,), device=dev)
+    for k0 in range(0, skv, block):
+        m_new = torch.maximum(m, s[..., k0:k0 + block].amax(-1))
+        mu = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.exp(m - mu)
+        p = torch.exp(s[..., k0:k0 + block] - mu[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.bfloat16().float(),
+            v[:, k0:k0 + block].float())
+        m = m_new
+    o = torch.where(l[..., None] > 0, o / l.clamp_min(1e-30)[..., None], 0.0)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, nq, h).bfloat16()
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits); 0 at 0."""
+    x = x.float()
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+@pytest.mark.parametrize("sq,window,seed", [(192, 96, 10), (256, 64, 11),
+                                            (130, 100, 12), (128, 0, 13)])
+def test_bf16_p_rounding_stays_inside_the_bf16_tolerance(sq, window, seed):
+    """Rounding P to bf16 before P.V (the tensor-core kernel's A operand)
+    keeps the result within the card test's 2e-2 of the fp32 plain result
+    cast to bf16, at Hymba-like widths (25/5 heads, H=64, window below S)."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _inputs(1, sq, 25, 5, 64, seed=seed))
+    got = _rounded_p_attention(q, k, v, window=window).float()
+    want = flash_attention_ref(q.float(), k.float(), v.float(),
+                               window=window).bfloat16().float()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-2,
+                               rtol=2e-2)
+    assert not torch.equal(got, want)     # the rounding does show
 
 
 # -- on the card -----------------------------------------------------------
 CARD = [((1, 2048, 25, 5, 64), "bfloat16", True, 1024),
         ((8, 512, 25, 5, 64), "bfloat16", True, 1024),
         ((8, 128, 32, 8, 64), "bfloat16", True, 0),
+        ((2, 384, 36, 4, 128), "bfloat16", True, 0),      # StarCoder2-7B
+        ((2, 256, 8, 2, 32), "bfloat16", True, 0),
+        ((2, 1000, 6, 3, 64), "bfloat16", True, 100),
+        ((2, 300, 8, 8, 64), "bfloat16", True, 0),        # G = 1
+        ((2, 200, 4, 2, 64), "bfloat16", False, 0),
+        ((4, 1, 8, 2, 64), "bfloat16", True, 0),          # Sq = 1
+        ((2, 200, 4, 4, 20), "bfloat16", False, 0),       # rows of 40 bytes
+        ((1, 130, 4, 2, 100), "bfloat16", False, 48),
         ((3, 1000, 6, 3, 32), "float32", True, 0),
         ((2, 333, 10, 2, 64), "float32", True, 100),
         ((2, 200, 4, 4, 20), "float32", False, 0),
         ((1, 130, 4, 2, 128), "float32", False, 48)]
+
+
+# the tensor-core kernel against `_rounded_p_attention`: the output's own
+# bf16 rounding can differ by one ulp, and a bf16 weight can round the other
+# way where the fp32 scores differ in their last bits, which moves a row of
+# few valid kv rows by up to 2^-8 of a weighted v; 1e-3 is 20x tighter
+# than the 2e-2 against the fp32 plain result
+TC_ULPS, TC_ATOL = 2, 1e-3
 
 
 def _card():
@@ -164,11 +247,13 @@ def test_cuda_kernel_matches_plain_version_on_the_card(shape, dtype, causal,
                                                        window):
     _card()
     args = _inputs(*shape, seed=8)
-    before = cuda_mod.LAUNCHES
+    cores, tensor_cores = _launches()
     got = _port(args, dtype, causal=causal, window=window, device="cuda",
                 impl="auto")
     torch.cuda.synchronize()
-    assert cuda_mod.LAUNCHES == before + 1
+    # bf16 on the tensor cores, fp32 on the CUDA cores
+    tc = dtype == "bfloat16"
+    assert _launches() == (cores + (not tc), tensor_cores + tc)
     # the plain version in fp32 on the same (dtype-rounded) inputs
     rounded = [torch.from_numpy(x).to(_TORCH[dtype]).float() for x in args]
     want = flash_attention_ref(*rounded, causal=causal, window=window)
@@ -176,3 +261,14 @@ def test_cuda_kernel_matches_plain_version_on_the_card(shape, dtype, causal,
     want = want.to(_TORCH[dtype]).float()
     np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
                                atol=tol, rtol=tol)
+    if tc:
+        # the tensor-core kernel's own rounding, to a few bf16 ulps: a mask
+        # or fragment-layout fault shows here where 2e-2 would pass it
+        qd, kd, vd = (t.to("cuda", torch.bfloat16) for t in rounded)
+        close = _rounded_p_attention(qd, kd, vd, causal=causal,
+                                     window=window).float()
+        err = (got.float() - close).abs()
+        limit = TC_ULPS * _bf16_ulp(close) + TC_ATOL
+        assert bool((err <= limit).all()), (
+            f"max |err| {float(err.max())}, "
+            f"max err/limit {float((err / limit).max())}")

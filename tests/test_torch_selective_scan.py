@@ -7,9 +7,11 @@ test_kernels.py (S, Di, N, the Pallas kernel's chunk), plus a start state
 h0, ragged S, the model's mixed types (bf16 x/B/C, fp32 dt/A/D) and the
 state-carry invariant through the port's ``models.ssm.selective_scan``.
 Tolerances: atol/rtol 1e-4 in fp32, as test_kernels.py; 2e-2 where x, B
-and C are bf16.  The CUDA kernel itself runs only on a card: the `gpu`
-tests import nothing of JAX, so they also run where JAX is absent
-(``pytest --noconftest -m gpu``).
+and C are bf16.  A plain transcription of the CUDA kernel's chunked scan
+(local scans from zero, running-product decays, carry pass, rescan) is
+held to both plain versions at 1e-5 in fp32.  The CUDA kernel itself runs
+only on a card: the `gpu` tests import nothing of JAX, so they also run
+where JAX is absent (``pytest --noconftest -m gpu``).
 """
 import itertools
 
@@ -153,6 +155,68 @@ def test_auto_on_cpu_runs_the_plain_version_and_launches_nothing():
         assert torch.equal(g, w)
 
 
+def _chunked_scan(x, dt, a, b_ssm, c_ssm, d_skip, h0, chunk):
+    """selective_scan.cu's chunked scan in plain PyTorch: (1) each chunk
+    but the last scanned from h = 0, keeping its end state and its decay as
+    the running product of the same exps; (2) the carry pass from h0 over
+    the chunks in order; (3) each chunk scanned again from its true start
+    state, giving y; the last chunk's end state is h_end."""
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    xf, dtf, af, bf, cf = (t.float() for t in (x, dt, a, b_ssm, c_ssm))
+    zeros = torch.zeros((bsz, di, n))
+
+    def steps(h, lo, hi, ys=None, dec=None):
+        for t in range(lo, hi):
+            e = torch.exp(dtf[:, t, :, None] * af[None])
+            h = e * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+            if dec is not None:
+                dec = dec * e
+            if ys is not None:
+                ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+        return h, dec
+
+    bounds = [(lo, min(s, lo + chunk)) for lo in range(0, s, chunk)]
+    local = [steps(zeros, lo, hi, dec=torch.ones_like(zeros))
+             for lo, hi in bounds[:-1]]
+    starts = [zeros if h0 is None else h0.float()]
+    for end, dec in local:
+        starts.append(dec * starts[-1] + end)
+    ys = []
+    for (lo, hi), h in zip(bounds, starts):
+        h, _ = steps(h, lo, hi, ys=ys)
+    y = torch.stack(ys, dim=1) + xf * d_skip.float()
+    return y.to(x.dtype), h
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, None])
+@pytest.mark.parametrize("h0", [False, True])
+def test_chunked_scan_matches_both_plain_versions(chunk, h0):
+    """Chunk lengths 1, 7, 64 (ragged last chunks of 100 steps) and S."""
+    args = _inputs(2, 100, 24, 16, seed=9, h0=h0)
+    targs = _torch_args(args)
+    ours = _chunked_scan(*targs[:6], targs[6] if h0 else None,
+                         chunk=chunk or 100)
+    y, h = _port(args)
+    _close(ours, (y.float().numpy(), h.numpy()), 1e-5)
+    (want,) = _jax(args)
+    _close(ours, want, 1e-5)
+
+
+@pytest.mark.parametrize("shape,chunks", [((1, 2048, 3200, 16), 11),
+                                          ((8, 512, 3200, 16), 1),
+                                          ((1, 4096, 3200, 16), 11),
+                                          ((2, 1000, 200, 32), 32),
+                                          ((1, 10, 64, 16), 1)])
+def test_chunk_rule(shape, chunks):
+    """One pass where B*Di threads fill the card (Hymba's wave); else
+    chunks of a multiple of 16 steps (Hymba's refill: 11 of 192)."""
+    bsz, s, di, n = shape
+    length = cuda_mod.chunk_len(bsz, s, di, n)
+    assert -(-s // length) == chunks
+    assert length == s or length % cuda_mod.STEP == 0
+
+
 @pytest.mark.parametrize("impl", ["cuda", "bogus"])
 def test_cuda_or_unknown_impl_on_a_cpu_tensor_raises(impl):
     args = _inputs(1, 8, 8, 4, seed=5)
@@ -165,6 +229,10 @@ def test_cuda_or_unknown_impl_on_a_cpu_tensor_raises(impl):
 # -- on the card -----------------------------------------------------------
 CARD = [((1, 2048, 3200, 16), "bfloat16", False),
         ((8, 512, 3200, 16), "bfloat16", False),
+        ((1, 4096, 3200, 16), "bfloat16", False),     # 11 chunks of 384
+        ((1, 10, 64, 16), "float32", True),           # S below one chunk
+        ((1, 1000, 200, 16), "float32", True),        # ragged last chunk
+        ((2, 300, 200, 8), "bfloat16", True),         # Di % 128 != 0
         ((2, 1000, 96, 4), "float32", True),
         ((3, 130, 70, 8), "float32", False),
         ((2, 64, 33, 32), "float32", True),
