@@ -159,12 +159,16 @@ def device_trace(torch, fn):
     return out, wall, per
 
 
+# the kernels kmeans.cu launches per call (profiler names, "<stage>_kernel")
+KMEANS_STAGES = ("kmeans_fused",)
+
+
 def kernel_stages(per: dict, calls: int) -> dict:
     """Device us per call of each of kmeans.cu's launches."""
     out = {}
     for name, us in per.items():
         m = re.search(r"(\w+)_kernel", name)
-        if m and m.group(1) in ("assign", "accumulate", "finalize"):
+        if m and m.group(1) in KMEANS_STAGES:
             out[m.group(1)] = out.get(m.group(1), 0.0) + us / calls
     return out
 
@@ -183,7 +187,10 @@ def check_kernel(torch, make_blobs, kernel_mod, op, n, k, d, dtype,
     x = torch.from_numpy(pts).to("cuda", dtype)
     c = torch.from_numpy(cen).to("cuda", dtype)
     ks, kc, k_sse = op(x, c, impl="cuda")
+    again = op(x, c, impl="cuda")
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((ks, kc, k_sse), again)), (
+        "two calls on the same inputs differ")
     rs, rc, r_sse = op(x, c, impl="ref")
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else 5e-2
@@ -209,7 +216,7 @@ def check_kernel(torch, make_blobs, kernel_mod, op, n, k, d, dtype,
     _, _, per = device_trace(torch, lambda: [op(x, c, impl="cuda")
                                              for _ in range(5)])
     stages = kernel_stages(per, 5)
-    assert set(stages) == {"assign", "accumulate", "finalize"}, per
+    assert set(stages) == set(KMEANS_STAGES), per
     b_s, b_by = bound(n, k, d, x.element_size())
     row = {"n": n, "k": k, "d": d, "dtype": str(dtype).split(".")[-1],
            "kernel_ms": ms, "kernel_eager_ms": eager, "plain_ms": plain,
@@ -253,13 +260,26 @@ def session_kmeans(core, pts, k: int, device, kernel_mod, tracer=None):
     return res, launches, resident, traced
 
 
-def attention_bound(b: int, sc: int, nq: int, nkv: int, h: int, esize: int):
+def valid_slots(torch, cpos, pos, window: int) -> int:
+    """Slots that pass the kernel's slot_ok, over all batch rows."""
+    rel = pos[:, None] - cpos
+    valid = (cpos >= 0) & (rel >= 0)
+    if window:
+        valid &= rel < window
+    return int(valid.sum())
+
+
+def attention_bound(b: int, sc: int, nq: int, nkv: int, h: int, esize: int,
+                    valid: int):
     """Least time for decode attention on an H100 SXM (s) and what bounds
-    it: K and V read once, q read and the output written once, cache_pos
-    and positions read once; 4*B*Nq*Sc*H fp32 FLOP (the two products)."""
-    nbytes = (2 * b * sc * nkv * h * esize + 2 * b * nq * h * esize
+    it: the K and V rows of the `valid` slots read once (no kernel needs
+    an empty slot's row), cache_pos and positions read once, q read and
+    the output written once; 4*H fp32 FLOP per valid slot and query head
+    (the two products).  With valid = b*sc it counts every row, empty
+    slots too (the bound_all_rows_us of the log line)."""
+    nbytes = (2 * valid * nkv * h * esize + 2 * b * nq * h * esize
               + 4 * b * sc + 4 * b)
-    flops = 4.0 * b * nq * sc * h
+    flops = 4.0 * valid * (nq // nkv) * h
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -316,9 +336,18 @@ def check_attention(torch, op, ref, name, b, sc, nq, nkv, h, dtype,
     tests/test_kernels.py); bf16 atol 1e-2 against the fp32 plain result
     cast to bf16.  Then times: kernel (CUDA-graph replay and eager),
     plain version and SDPA, each over enough input copies to exceed L2."""
+    from repro_torch.kernels.decode_attention import decode_attention as mod
     args = attention_inputs(torch, b, sc, nq, nkv, h, dtype, **kind)
+    routes = (mod.TC_LAUNCHES, mod.CORE_LAUNCHES)
     got = op(*args, window=window, impl="cuda")
+    again = op(*args, window=window, impl="cuda")
     torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16          # bf16 on the tensor cores
+    assert (mod.TC_LAUNCHES, mod.CORE_LAUNCHES) == (
+        routes[0] + 2 * tc, routes[1] + 2 * (not tc)), (
+        f"decode_attention {name}: not on the {dtype} route")
+    assert torch.equal(got, again), (
+        f"decode_attention {name}: two calls on the same inputs differ")
     q, k, v, cpos, pos = args
     want = ref(q.float(), k.float(), v.float(), cpos, pos, window=window)
     if dtype == torch.float32:
@@ -345,16 +374,20 @@ def check_attention(torch, op, ref, name, b, sc, nq, nkv, h, dtype,
         *a, window=window, impl="ref")), reps=copies)
     library = event_ms(torch, rotating(sets, lambda *a: sdpa_attention(
         torch, *a, window)), reps=copies)
-    b_s, b_by = attention_bound(b, sc, nq, nkv, h, esize)
+    valid = valid_slots(torch, cpos, pos, window)
+    b_s, b_by = attention_bound(b, sc, nq, nkv, h, esize, valid)
+    all_s, _ = attention_bound(b, sc, nq, nkv, h, esize, b * sc)
     row = {"shape": name, "b": b, "sc": sc, "nq": nq, "nkv": nkv, "h": h,
            "window": window, "dtype": str(dtype).split(".")[-1],
-           "kernel_ms": ms, "kernel_eager_ms": eager, "plain_ms": plain,
-           "library_ms": library, "bound_us": b_s * 1e6, "bound_by": b_by,
+           "valid_slots": valid, "kernel_ms": ms, "kernel_eager_ms": eager,
+           "plain_ms": plain, "library_ms": library, "bound_us": b_s * 1e6,
+           "bound_by": b_by, "bound_all_rows_us": all_s * 1e6,
            "max_abs_err": float(err.max()), "library_max_abs_err": lib_err}
     log(f"decode_attention check {name} B={b} Sc={sc} {nq}/{nkv} H={h} "
-        f"{row['dtype']} window={window}: kernel_ms={ms:.6f} "
-        f"kernel_eager_ms={eager:.6f} plain_ms={plain:.6f} "
+        f"{row['dtype']} window={window} valid_slots={valid}: "
+        f"kernel_ms={ms:.6f} kernel_eager_ms={eager:.6f} plain_ms={plain:.6f} "
         f"sdpa_ms={library:.6f} bound_us={b_s * 1e6:.4f} ({b_by}) "
+        f"bound_all_rows_us={all_s * 1e6:.4f} "
         f"max_abs_err={row['max_abs_err']:.3e} sdpa_err={lib_err:.3e}")
     return row
 
@@ -403,6 +436,10 @@ def decode_logits(torch, model, params, cache, feed, first_pos):
     return out, ms
 
 
+# the profiler names of decode_attention.cu's kernels
+DECODE_ATTN_KERNELS = r"decode_attn_kernel"
+
+
 def breakdown(per: dict) -> dict:
     """Device us of a traced prefill or decode step by kind: the attention
     and scan kernels' launches, GEMMs (cuBLAS/cuBLASLt names), everything
@@ -414,7 +451,7 @@ def breakdown(per: dict) -> dict:
             out["flash_attention"] += us
         elif "scan_chunk_kernel" in name:
             out["selective_scan"] += us
-        elif re.search(r"split_kernel|combine_kernel", name):
+        elif re.search(DECODE_ATTN_KERNELS, name):
             out["decode_attention"] += us
         elif re.search(r"gemm|gemv|nvjet|xmma|cutlass|cublas|splitK", name,
                        re.I):
@@ -478,6 +515,9 @@ def model_phase(torch, cfg, params) -> dict:
     _, wall, per = device_trace(torch, lambda: kern.decode(
         params, cache_k, feed[-1][:, None], pos))
     parts = breakdown(per)
+    assert parts["decode_attention"] > 0, (
+        f"the decode step launched decode_attention but no traced kernel "
+        f"matched {DECODE_ATTN_KERNELS!r}: {sorted(per)}")
     busy = sum(parts.values())
     log(f"trace of one decode step (kernel path, B=8, Sc=1024, profiler "
         f"on): wall_us={wall * 1e6:.3f} device_busy_us={busy:.3f} "
@@ -587,6 +627,8 @@ def serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
     prefills = st["waves"] + st["refills"]
     assert launches["decode_attention"] == (
         cfg.num_layers * st["decode_steps"]), (launches, st)
+    assert launches["decode_attention_tc"] == launches["decode_attention"], (
+        launches)                               # bf16: the tensor cores
     assert launches["flash_attention"] == cfg.num_layers * prefills, (
         launches, st)
     assert launches["flash_attention_fp32"] == 0, launches   # bf16 model
@@ -824,6 +866,7 @@ def hymba_model_phase(torch, cfg, params, kernels: dict) -> dict:
     assert launches["flash_attention_fp32"] == 0, launches
     assert launches["selective_scan"] == cfg.num_layers, launches
     assert launches["decode_attention"] == 8 * cfg.num_layers, launches
+    assert launches["decode_attention_tc"] == 8 * cfg.num_layers, launches
     d = max(float((a - c).abs().max()) for a, c in zip(got_k, got_p))
     d_plain = max(float((a - c).abs().max()) for a, c in zip(got_p, want32))
     d_kernel = max(float((a - c).abs().max()) for a, c in zip(got_k, want32))
@@ -869,6 +912,9 @@ def hymba_trace(torch, cfg, params) -> dict:
     shape = {"prefill": "B=1, S=2048", "decode": "step, B=8, S=513"}
     for what, (wall, per) in out.items():
         parts = breakdown(per)
+        assert what != "decode" or parts["decode_attention"] > 0, (
+            f"the hymba decode step launched decode_attention but no traced "
+            f"kernel matched {DECODE_ATTN_KERNELS!r}: {sorted(per)}")
         busy = sum(parts.values())
         res[what] = {"wall_us": wall * 1e6, "busy_us": busy,
                      "busy_share": busy / (wall * 1e6), "device_us": parts}
@@ -900,6 +946,8 @@ def hymba_serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
         launches, st)
     assert launches["decode_attention"] == (
         cfg.num_layers * st["decode_steps"]), (launches, st)
+    assert launches["decode_attention_tc"] == launches["decode_attention"], (
+        launches)
     assert launches["flash_attention_fp32"] == 0, launches   # bf16 model
     res["prompt_lens"] = [int(n) for n in lens]
     log(serve_line("hymba-1.5b", cfg, res) + f"; prompt lengths "
@@ -1036,6 +1084,9 @@ def main() -> int:
     attn_shapes = [
         ("serving fill 0.25", 8, 1024, 32, 8, 64, bf16, 0, {"fill": 0.25}),
         ("serving fill 1.0", 8, 1024, 32, 8, 64, bf16, 0, {"fill": 1.0}),
+        ("hymba decode, window", 8, 1024, 25, 5, 64, bf16, 1024,
+         {"first": 2048}),
+        ("hymba decode, global", 8, 4096, 25, 5, 64, bf16, 0, {"fill": 0.5}),
         ("rolling window", 8, 256, 32, 8, 64, bf16, 256, {"first": 1000}),
         ("ragged G=2", 3, 1000, 6, 3, 32, f32, 0, {"fill": 1.0}),
         ("G=1", 2, 512, 8, 8, 64, f32, 0, {"fill": 1.0}),
@@ -1083,6 +1134,7 @@ def main() -> int:
         f"card in {time.perf_counter() - t0:.3f} s")
     model_row = model_phase(torch, cfg, params)
     llama_kernels = {"decode_attention": (attn_mod, "LAUNCHES"),
+                     "decode_attention_tc": (attn_mod, "TC_LAUNCHES"),
                      "flash_attention": (flash_mod, "TC_LAUNCHES"),
                      "flash_attention_fp32": (flash_mod, "LAUNCHES")}
     lserve = serving_phase(torch, core, cfg, params, llama_kernels)
@@ -1100,7 +1152,8 @@ def main() -> int:
     hymba_kernels = {"flash_attention": (flash_mod, "TC_LAUNCHES"),
                      "flash_attention_fp32": (flash_mod, "LAUNCHES"),
                      "selective_scan": (scan_mod, "LAUNCHES"),
-                     "decode_attention": (attn_mod, "LAUNCHES")}
+                     "decode_attention": (attn_mod, "LAUNCHES"),
+                     "decode_attention_tc": (attn_mod, "TC_LAUNCHES")}
     hymba_row = hymba_model_phase(torch, hcfg, hparams, hymba_kernels)
     hymba_steps = hymba_trace(torch, hcfg, hparams)
     hserve = hymba_serving_phase(torch, core, hcfg, hparams, hymba_kernels)
@@ -1127,6 +1180,7 @@ def main() -> int:
         "replaces": ATTN_REPLACES,
         "launches": sum(by_path("decode_attention").values()),
         "launches_by_path": by_path("decode_attention"), "checked": True,
+        "tc_launches": sum(by_path("decode_attention_tc").values()),
         "max_abs_err": max([r["max_abs_err"] for r in attn_rows]
                            + [empty_err]),
         "ms": ahead["kernel_ms"], "plain_ms": ahead["plain_ms"],
