@@ -36,6 +36,7 @@ Output: progress lines, then the card's name and power limit, a
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -79,6 +80,16 @@ PROMPT_LENS = (96, 128, 160)
 # check; 16 requests of 512/1280/2048 tokens into a 4096-slot cache
 HYMBA_CHECK_LEN, HYMBA_MAX_LEN = 1536, 4096
 HYMBA_PROMPT_LENS = (512, 1280, 2048)
+# the InternVL2-2B phases: 16 requests of 128/256/384 text tokens after the
+# 256 vision tokens, into 1024 slots
+VLM_MAX_LEN, VLM_PROMPT_LENS = 1024, (128, 256, 384)
+# the Mixtral-8x22B phases, at its published widths: the model check at 2
+# of its 56 layers on 2 prompts of 4608 (past the 4096 window), serving at
+# 8 layers (40.9 GB of bf16), 16 requests of 1024/2048/4608 tokens into a
+# 4096-slot rolling cache (max_len 8192)
+MIXTRAL_CHECK_LAYERS, MIXTRAL_LAYERS = 2, 8
+MIXTRAL_CHECK_LEN, MIXTRAL_MAX_LEN = 4608, 8192
+MIXTRAL_PROMPT_LENS = (1024, 2048, 4608)
 
 
 def log(*args) -> None:
@@ -422,7 +433,7 @@ def check_empty_slots(torch, op, ref) -> float:
 def decode_logits(torch, model, params, cache, feed, first_pos):
     """Decode len(feed) steps teaching `feed`; returns the logits of every
     step (fp32 on the card) and the host ms of each (synchronised) step."""
-    pos = torch.full((SERVE_BATCH,), first_pos, dtype=torch.int32,
+    pos = torch.full((len(feed[0]),), first_pos, dtype=torch.int32,
                      device="cuda")
     out, ms = [], []
     for tok in feed:
@@ -440,35 +451,50 @@ def decode_logits(torch, model, params, cache, feed, first_pos):
 DECODE_ATTN_KERNELS = r"decode_attn_kernel"
 
 
+def model_batch(torch, cfg, tokens) -> dict:
+    """A prefill batch: the tokens, and for a vision config the zero patch
+    embeddings the serving engine feeds (the ViT is a stub)."""
+    batch = {"tokens": tokens}
+    if cfg.vision_tokens:
+        batch["patch_embeds"] = torch.zeros(
+            (tokens.shape[0], cfg.vision_tokens, cfg.vision_embed_dim),
+            dtype=torch.float32, device=tokens.device)
+    return batch
+
+
+def kernel_kind(name: str) -> str:
+    """The kind of a traced kernel, by name: the attention and scan
+    kernels, GEMMs (cuBLAS/cuBLASLt names), everything else."""
+    if re.search(r"flash_tc_kernel|flash_kernel", name):
+        return "flash_attention"
+    if "scan_chunk_kernel" in name:
+        return "selective_scan"
+    if re.search(DECODE_ATTN_KERNELS, name):
+        return "decode_attention"
+    if re.search(r"gemm|gemv|nvjet|xmma|cutlass|cublas|splitK", name, re.I):
+        return "gemm"
+    return "other"
+
+
 def breakdown(per: dict) -> dict:
-    """Device us of a traced prefill or decode step by kind: the attention
-    and scan kernels' launches, GEMMs (cuBLAS/cuBLASLt names), everything
-    else."""
+    """Device us of a traced prefill or decode step by kernel kind."""
     out = {"flash_attention": 0.0, "selective_scan": 0.0,
            "decode_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for name, us in per.items():
-        if re.search(r"flash_tc_kernel|flash_kernel", name):
-            out["flash_attention"] += us
-        elif "scan_chunk_kernel" in name:
-            out["selective_scan"] += us
-        elif re.search(DECODE_ATTN_KERNELS, name):
-            out["decode_attention"] += us
-        elif re.search(r"gemm|gemv|nvjet|xmma|cutlass|cublas|splitK", name,
-                       re.I):
-            out["gemm"] += us
-        else:
-            out["other"] += us
+        out[kernel_kind(name)] += us
     return out
 
 
-def model_phase(torch, cfg, params) -> dict:
-    """Kernel vs plain at model level, full width: prefill 8 prompts of 128
-    tokens, then 8 decode steps with decode_kernel=True (the config's
-    default), with decode_kernel=False and with the fp32 model (params
-    cast to fp32), all
+def model_phase(torch, cfg, params, *, name="llama3.2-1b", b=SERVE_BATCH,
+                s=128, max_len=SERVE_MAX_LEN, trace=True) -> dict:
+    """Kernel vs plain at model level: prefill `b` prompts of `s` tokens
+    (after the zero patch embeddings of a vision config), then 8 decode
+    steps with decode_kernel=True (the config's default), with
+    decode_kernel=False and with the fp32 model (params cast to fp32), all
     fed the fp32 model's greedy tokens.  Tolerance: the kernel path may lie
     no further from the plain bf16 path than the plain bf16 path lies from
-    the fp32 model on the same params and tokens (PERF.md)."""
+    the fp32 model on the same params and tokens (PERF.md).  With `trace`,
+    one decode step of the kernel path under the profiler."""
     from repro_torch.models.common import tree_map
     from repro_torch.models.model import build_model
     kern = build_model(cfg)
@@ -477,14 +503,16 @@ def model_phase(torch, cfg, params) -> dict:
                                           dtype="float32"))
     p32 = tree_map(lambda t: t.float(), params)
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, 128)).astype(np.int32)).cuda()
-    l32, c32 = m32.prefill(p32, {"tokens": prompts}, SERVE_MAX_LEN)
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    batch = model_batch(torch, cfg, prompts)
+    first = s + cfg.vision_tokens            # the first decode position
+    l32, c32 = m32.prefill(p32, batch, max_len)
     feed, cur = [], l32
-    _, cache_k = kern.prefill(params, {"tokens": prompts}, SERVE_MAX_LEN)
+    _, cache_k = kern.prefill(params, batch, max_len)
     cache_p = tree_map(torch.clone, cache_k)
     # the fp32 model's greedy tokens, taught to all three
     want32 = []
-    pos = torch.full((SERVE_BATCH,), 128, dtype=torch.int32, device="cuda")
+    pos = torch.full((b,), first, dtype=torch.int32, device="cuda")
     for _ in range(8):
         tok = cur.argmax(-1).to(torch.int32)
         feed.append(tok)
@@ -492,26 +520,33 @@ def model_phase(torch, cfg, params) -> dict:
         want32.append(cur.float())
         pos = pos + 1
     del p32, c32
-    got_k, ms_k = decode_logits(torch, kern, params, cache_k, feed, 128)
-    got_p, ms_p = decode_logits(torch, plain, params, cache_p, feed, 128)
-    d = max(float((a - b).abs().max()) for a, b in zip(got_k, got_p))
-    d_plain = max(float((a - b).abs().max()) for a, b in zip(got_p, want32))
-    d_kernel = max(float((a - b).abs().max()) for a, b in zip(got_k, want32))
-    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
-                for a, b in zip(got_k, got_p))
+    got_k, ms_k = decode_logits(torch, kern, params, cache_k, feed, first)
+    got_p, ms_p = decode_logits(torch, plain, params, cache_p, feed, first)
+    d = max(float((a - c).abs().max()) for a, c in zip(got_k, got_p))
+    d_plain = max(float((a - c).abs().max()) for a, c in zip(got_p, want32))
+    d_kernel = max(float((a - c).abs().max()) for a, c in zip(got_k, want32))
+    agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum())
+                for a, c in zip(got_k, got_p))
     scale = max(float(a.abs().max()) for a in got_p)
-    log(f"model check llama3.2-1b full width, 8 prompts x 128, 8 decode "
-        f"steps: max|dlogits| kernel vs plain = {d:.6f} (bound: plain vs "
-        f"fp32 = {d_plain:.6f}); kernel vs fp32 = {d_kernel:.6f}; "
-        f"max|logits| {scale:.4f}; greedy agree {agree}/{8 * SERVE_BATCH}; "
-        f"ms/step kernel {[round(x, 3) for x in ms_k]} plain "
-        f"{[round(x, 3) for x in ms_p]}")
+    log(f"model check {name}, {b} prompts x {s}"
+        + (f" after {cfg.vision_tokens} vision tokens"
+           if cfg.vision_tokens else "")
+        + f", {cfg.num_layers} layers, 8 decode steps: max|dlogits| kernel "
+        f"vs plain = {d:.6f} (bound: plain vs fp32 = {d_plain:.6f}); kernel "
+        f"vs fp32 = {d_kernel:.6f}; max|logits| {scale:.4f}; greedy agree "
+        f"{agree}/{8 * b}; ms/step kernel {[round(x, 3) for x in ms_k]} "
+        f"plain {[round(x, 3) for x in ms_p]}")
     assert all(bool(torch.isfinite(a).all()) for a in got_k + got_p)
-    assert d <= d_plain, (f"kernel decode differs from the plain decode by "
-                          f"{d}, more than the plain bf16 path's own error "
-                          f"{d_plain} against fp32")
+    assert d <= d_plain, (f"{name}: kernel decode differs from the plain "
+                          f"decode by {d}, more than the plain bf16 path's "
+                          f"own error {d_plain} against fp32")
+    row = {"max_abs_dlogits": d, "plain_vs_fp32": d_plain,
+           "kernel_vs_fp32": d_kernel, "greedy_agree": agree,
+           "ms_per_step_kernel": ms_k, "ms_per_step_plain": ms_p}
+    if not trace:
+        return row
     # one decode step under the profiler: where its device time goes
-    pos = torch.full((SERVE_BATCH,), 136, dtype=torch.int32, device="cuda")
+    pos = torch.full((b,), first + 8, dtype=torch.int32, device="cuda")
     _, wall, per = device_trace(torch, lambda: kern.decode(
         params, cache_k, feed[-1][:, None], pos))
     parts = breakdown(per)
@@ -519,16 +554,14 @@ def model_phase(torch, cfg, params) -> dict:
         f"the decode step launched decode_attention but no traced kernel "
         f"matched {DECODE_ATTN_KERNELS!r}: {sorted(per)}")
     busy = sum(parts.values())
-    log(f"trace of one decode step (kernel path, B=8, Sc=1024, profiler "
-        f"on): wall_us={wall * 1e6:.3f} device_busy_us={busy:.3f} "
+    slots = cache_k["main"]["kv"]["k"].shape[2]
+    log(f"trace of one {name} decode step (kernel path, B={b}, Sc={slots}, "
+        f"profiler on): wall_us={wall * 1e6:.3f} device_busy_us={busy:.3f} "
         f"device_busy_share={busy / (wall * 1e6):.6f} "
         f"decode_attention_us={parts['decode_attention']:.3f} "
         f"gemm_us={parts['gemm']:.3f} other_us={parts['other']:.3f} "
         f"kernels={len(per)}")
-    return {"max_abs_dlogits": d, "plain_vs_fp32": d_plain,
-            "kernel_vs_fp32": d_kernel, "greedy_agree": agree,
-            "ms_per_step_kernel": ms_k, "ms_per_step_plain": ms_p,
-            "step_us": parts, "step_wall_us": wall * 1e6}
+    return row | {"step_us": parts, "step_wall_us": wall * 1e6}
 
 
 def zero_counts(kernels: dict) -> None:
@@ -542,13 +575,18 @@ def read_counts(kernels: dict) -> dict:
 
 
 def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
-          memory_gb: float):
+          memory_gb: float, after=None):
     """ServingEngine on a one-pilot PilotSession on the card: greedy
     SERVE_GEN tokens for each prompt at batch SERVE_BATCH.  `kernels` maps
     a name to (kernel module, counter): each count is set to 0 just before
-    the requests go in and read just after they drained.  Returns the engine's
-    stats, the launches, the wall seconds, the deploy+load seconds and the
-    device types the runtime's params and cache were seen on."""
+    the requests go in and read just after they drained.  With params
+    None the engine draws them on the card from its seed (0), so that the
+    caller holds no copy of them.  `after(runtime params)`, if given, runs
+    once the requests drained, before the session closes.  Returns the
+    engine's stats, the launches, the wall seconds, the deploy+load
+    seconds, the peak device memory from deploy on, and what `after`
+    returned; it checks the device types the runtime's params and cache
+    were seen on."""
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.model import build_model
     from repro_torch.serving import ServingEngine
@@ -568,6 +606,8 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
         (pilot,) = s.add_pilots(1, memory_gb=memory_gb)
         with ServingEngine(s, model, params=params, batch_size=SERVE_BATCH,
                            max_len=max_len, page_tokens=16) as eng:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             eng.deploy()
             # the resident loop rebuilds the params on the card from the
@@ -587,6 +627,9 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
             launches = read_counts(kernels)
             outs = [r.result(timeout=10) for r in reqs]
             st = eng.stats()
+            peak = torch.cuda.max_memory_allocated()
+            extra = (None if after is None else
+                     after(pilot._jit_cache[(eng.name, "runtime")].params))
     n = len(prompts)
     assert st["completed"] == n, st
     assert all(len(o) == SERVE_GEN for o in outs)
@@ -595,13 +638,13 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
     assert st["refills"] >= SERVE_BATCH, st
     assert seen == {"cuda"}, f"runtime params/cache on {seen}"
     return {"stats": st, "wall_s": wall, "launches": launches,
-            "setup_s": setup}
+            "setup_s": setup, "peak_bytes": peak, "after": extra}
 
 
-def serve_line(name, cfg, res) -> str:
+def serve_line(name, cfg, res, width="full width") -> str:
     st, wall = res["stats"], res["wall_s"]
     steps = st["decode_steps"]
-    return (f"serving {name} full width on 1 pilot: "
+    return (f"serving {name} {width} on 1 pilot: "
             f"{st['completed']} requests, {st['tokens_served']} tokens in "
             f"{wall:.6f} s ({st['tokens_served'] / wall:.3f} tok/s), "
             f"{steps} decode steps ({wall / steps * 1e3:.4f} ms per step, "
@@ -609,7 +652,8 @@ def serve_line(name, cfg, res) -> str:
             f"waves={st['waves']} p50_latency_s={st['p50_latency_s']:.6f} "
             f"p99_latency_s={st['p99_latency_s']:.6f} launches="
             f"{res['launches']} ({cfg.num_layers} layers); params+cache on "
-            f"cuda; deploy+load {res['setup_s']:.3f} s")
+            f"cuda; deploy+load {res['setup_s']:.3f} s; peak device memory "
+            f"{res['peak_bytes'] / 1e9:.3f} GB")
 
 
 def serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
@@ -955,6 +999,127 @@ def hymba_serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
     return res
 
 
+def family_serving_phase(torch, core, name, cfg, params, kernels: dict,
+                         lens, max_len, *, memory_gb=8, after=None,
+                         width="full width") -> dict:
+    """A GQA family's serving path (InternVL2, Mixtral): 16 greedy requests
+    whose prompt lengths are drawn from `lens` (np.random.default_rng(0)).
+    flash_attention runs on the tensor cores once per layer in each
+    prefill, decode_attention once per layer in each decode step."""
+    rng = np.random.default_rng(0)
+    lens = rng.choice(lens, size=SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    res = serve(torch, core, cfg, params, prompts, kernels, max_len=max_len,
+                memory_gb=memory_gb, after=after)
+    st, launches = res["stats"], res["launches"]
+    prefills = st["waves"] + st["refills"]
+    assert launches["flash_attention"] == cfg.num_layers * prefills, (
+        launches, st)
+    assert launches["decode_attention"] == (
+        cfg.num_layers * st["decode_steps"]), (launches, st)
+    assert launches["decode_attention_tc"] == launches["decode_attention"], (
+        launches)
+    assert launches["flash_attention_fp32"] == 0, launches   # bf16 model
+    assert res["peak_bytes"] < 80e9, res["peak_bytes"]
+    res["prompt_lens"] = [int(n) for n in lens]
+    log(serve_line(name, cfg, res, width) + f"; prompt lengths "
+        f"{res['prompt_lens']}")
+    return res
+
+
+def op_kernels(e) -> list:
+    """(name, us) of the kernels a profiled CPU op and its children
+    launched."""
+    out = [(k.name, float(k.duration)) for k in e.kernels]
+    for ch in e.cpu_children:
+        out += op_kernels(ch)
+    return out
+
+
+def mixtral_step(torch, cfg, params) -> dict:
+    """Where a Mixtral decode step's time goes, on the serving runtime's
+    params (the one device copy): 8 prompts of 1024 prefilled into the
+    4096-slot cache, 5 synchronised decode steps timed on the host clock,
+    then one step under the profiler (CPU and CUDA activity): the expert
+    products (the kernels of aten::bmm, which only moe_ffn calls in a decode
+    step), the other GEMMs, decode_attention and the rest, beside the
+    weight-read floor (every weight but the embedding table read once:
+    under the capacity dispatch each decode step runs all 8 experts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    prompts = hymba_inputs(torch, cfg, SERVE_BATCH, 1024, seed=4)
+    _, cache = model.prefill(params, {"tokens": prompts}, MIXTRAL_MAX_LEN)
+    tok = prompts[:, -1:]
+    pos = torch.full((SERVE_BATCH,), 1024, dtype=torch.int32, device="cuda")
+    ms = []
+    for i in range(6):                      # the first one warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode(params, cache, tok, pos + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode(params, cache, tok, pos + 6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per, bmm = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+        elif e.name == "aten::bmm":
+            bmm += op_kernels(e)
+    parts = breakdown(per)
+    busy = sum(parts.values())
+    # the expert products' kernels leave the kind their name gave them
+    for kname, us in bmm:
+        parts[kernel_kind(kname)] -= us
+    experts = sum(us for _, us in bmm)
+    parts = {"expert_products": experts} | parts
+    assert parts["decode_attention"] > 0, sorted(per)
+    assert experts > 0, f"no kernel of aten::bmm traced: {sorted(per)}"
+    layers = params["layers"]
+    expert_bytes = sum(int(layers["moe"][k].nbytes)
+                       for k in ("w_gate", "w_up", "w_down"))
+    weight_bytes = sum(int(t.nbytes) for t in tree_leaves(params)) - int(
+        params["embed"].nbytes)
+    floor_ms = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    row = {"wall_us": wall * 1e6, "busy_us": busy,
+           "busy_share": busy / (wall * 1e6), "device_us": parts,
+           "step_ms": ms[1:], "expert_bytes": expert_bytes,
+           "weight_bytes": weight_bytes, "weight_floor_ms": floor_ms}
+    log(f"trace of one mixtral-8x22b decode step ({cfg.num_layers} layers, "
+        f"B={SERVE_BATCH}, 4096 slots, position 1030, kernel path, profiler "
+        f"on): wall_us={wall * 1e6:.3f} device_busy_us={busy:.3f} "
+        f"device_busy_share={busy / (wall * 1e6):.6f} "
+        + " ".join(f"{k}_us={v:.3f}" for k, v in parts.items())
+        + f" (gemm_us: the other GEMMs); device busy us over the fastest "
+        f"synchronised step {busy / (min(ms[1:]) * 1e3):.6f}; synchronised "
+        f"steps ms "
+        f"{[round(x, 3) for x in ms[1:]]}; weight-read floor "
+        f"{floor_ms:.4f} ms ({weight_bytes} bytes of weights, "
+        f"{expert_bytes} of them the experts', at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s)")
+    return row
+
+
+def host_memory() -> dict:
+    """The machine's `free -g` and this process's peak resident set."""
+    import resource
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip()
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    log("free -g on the card's machine, the Mixtral shards in host memory:\n"
+        + free + f"\npeak resident set of this process {rss_gb:.3f} GB")
+    return {"free_g": free, "max_rss_gb": rss_gb}
+
+
 def main() -> int:
     import torch
 
@@ -1090,7 +1255,12 @@ def main() -> int:
         ("rolling window", 8, 256, 32, 8, 64, bf16, 256, {"first": 1000}),
         ("ragged G=2", 3, 1000, 6, 3, 32, f32, 0, {"fill": 1.0}),
         ("G=1", 2, 512, 8, 8, 64, f32, 0, {"fill": 1.0}),
-        ("long row", 1, 32768, 32, 8, 64, bf16, 0, {"fill": 1.0})]
+        ("long row", 1, 32768, 32, 8, 64, bf16, 0, {"fill": 1.0}),
+        # head width 128: Mixtral's rolling 4096-slot window, rows past it,
+        # and InternVL2's 1024 slots full
+        ("mixtral decode, window", 8, 4096, 48, 8, 128, bf16, 4096,
+         {"first": 4608}),
+        ("internvl2 decode", 8, 1024, 16, 8, 128, bf16, 0, {"fill": 1.0})]
     attn_rows = [check_attention(torch, decode_attention_op,
                                  decode_attention_ref, name, b, sc, nq, nkv,
                                  h, dt, window=w, **kind)
@@ -1104,7 +1274,11 @@ def main() -> int:
         ("hymba refill, global", 1, 2048, 25, 5, 64, bf16, 0),
         ("hymba wave, window", 8, 512, 25, 5, 64, bf16, 1024),
         ("llama wave", 8, 128, 32, 8, 64, bf16, 0),
-        ("ragged G=2", 3, 1000, 6, 3, 32, f32, 0)]
+        ("ragged G=2", 3, 1000, 6, 3, 32, f32, 0),
+        # head width 128: a Mixtral refill past its 4096 window, and an
+        # InternVL2 wave (256 vision + 384 text tokens)
+        ("mixtral refill, window", 1, 4608, 48, 8, 128, bf16, 4096),
+        ("internvl2 wave", 8, 640, 16, 8, 128, bf16, 0)]
     flash_rows = [check_flash(torch, flash_attention_op, *shape)
                   for shape in flash_shapes]
     # the tensor-core kernel's other widths and edges, checked untimed
@@ -1139,6 +1313,7 @@ def main() -> int:
                      "flash_attention_fp32": (flash_mod, "LAUNCHES")}
     lserve = serving_phase(torch, core, cfg, params, llama_kernels)
     del params
+    gc.collect()             # the closed session's runtime, held in cycles
     torch.cuda.empty_cache()
 
     # -- 7. the serving path: Hymba-1.5B at full width ------------------------
@@ -1157,8 +1332,81 @@ def main() -> int:
     hymba_row = hymba_model_phase(torch, hcfg, hparams, hymba_kernels)
     hymba_steps = hymba_trace(torch, hcfg, hparams)
     hserve = hymba_serving_phase(torch, core, hcfg, hparams, hymba_kernels)
+    del hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    gqa_kernels = {"decode_attention": (attn_mod, "LAUNCHES"),
+                   "decode_attention_tc": (attn_mod, "TC_LAUNCHES"),
+                   "flash_attention": (flash_mod, "TC_LAUNCHES"),
+                   "flash_attention_fp32": (flash_mod, "LAUNCHES")}
 
-    # -- 8. the kernels line -----------------------------------------------
+    # -- 8. the serving path: InternVL2-2B at full width ---------------------
+    vcfg = get_config("internvl2_2b")
+    t0 = time.perf_counter()
+    vparams = build_model(vcfg).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"params: {vcfg.name} {vcfg.num_params()} parameters drawn on the "
+        f"card in {time.perf_counter() - t0:.3f} s")
+    vision_row = model_phase(torch, vcfg, vparams, name="internvl2-2b",
+                             max_len=VLM_MAX_LEN)
+    vserve = family_serving_phase(torch, core, "internvl2-2b", vcfg,
+                                  vparams, gqa_kernels, VLM_PROMPT_LENS,
+                                  VLM_MAX_LEN, memory_gb=4)
+    del vparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9. the serving path: Mixtral-8x22B at published widths -------------
+    full = get_config("mixtral_8x22b")
+    ccfg = dataclasses.replace(full, num_layers=MIXTRAL_CHECK_LAYERS)
+    t0 = time.perf_counter()
+    cparams = build_model(ccfg).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"params: {ccfg.name} at {ccfg.num_layers} of {full.num_layers} "
+        f"layers, {ccfg.num_params()} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    moe_row = model_phase(
+        torch, ccfg, cparams, name=f"mixtral-8x22b ({ccfg.num_layers} of "
+        f"{full.num_layers} layers)", b=2, s=MIXTRAL_CHECK_LEN,
+        max_len=MIXTRAL_MAX_LEN, trace=False)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+    weight_bytes = 2 * mcfg.num_params()             # all bf16 but the router
+    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
+    log(f"serving {mcfg.name} at {mcfg.num_layers} of {full.num_layers} "
+        f"layers: {mcfg.num_params()} parameters (about "
+        f"{weight_bytes / 1e9:.3f} GB), drawn on the card by the engine from "
+        f"its seed, one device copy")
+    steps = {}
+
+    def after(params):
+        # one device copy: the runtime's params are all that is allocated
+        # besides the batch's cache
+        live = torch.cuda.memory_allocated()
+        log(f"device memory allocated after serving {live / 1e9:.3f} GB "
+            f"(weights about {weight_bytes / 1e9:.3f} GB)")
+        assert live < 1.1 * weight_bytes, live
+        steps["host"] = host_memory()
+        steps["step"] = mixtral_step(torch, mcfg, params)
+        return steps
+
+    mserve = family_serving_phase(
+        torch, core, "mixtral-8x22b", mcfg, None, gqa_kernels,
+        MIXTRAL_PROMPT_LENS, MIXTRAL_MAX_LEN, after=after,
+        width=f"published widths, {mcfg.num_layers} of {full.num_layers} "
+        f"layers,")
+    step = steps["step"]
+    per_step = mserve["wall_s"] / mserve["stats"]["decode_steps"] * 1e3
+    log(f"mixtral-8x22b decode step against its weight-read floor: floor "
+        f"{step['weight_floor_ms']:.4f} ms; synchronised step "
+        f"{min(step['step_ms']):.4f} ms (min of {len(step['step_ms'])}); "
+        f"serving {per_step:.4f} ms per step, refills included")
+
+    # -- 10. the kernels line ----------------------------------------------
     head = rows[len(rows) - len(PAPER_SCENARIOS)]      # scenario i partition
     ahead = attn_rows[1]                                # the serving shape
     fhead, shead = flash_rows[0], scan_rows[0]          # the hymba refill
@@ -1166,8 +1414,11 @@ def main() -> int:
         "completed", "tokens_served", "decode_steps", "refills", "waves",
         "p50_latency_s", "p99_latency_s")} | {
         "wall_s": res["wall_s"], "setup_s": res["setup_s"]}
-    by_path = lambda name: {"llama3_2_1b serving": lserve["launches"].get(
-        name, 0), "hymba_1_5b serving": hserve["launches"].get(name, 0)}
+    by_path = lambda name: {
+        path: res["launches"].get(name, 0) for path, res in (
+            ("llama3_2_1b serving", lserve), ("hymba_1_5b serving", hserve),
+            ("internvl2_2b serving", vserve),
+            ("mixtral_8x22b serving", mserve))}
     log(card)
     log(json.dumps({"kernels": [{
         "name": "kmeans_assign", "route": "cuda", "source": SOURCE,
@@ -1186,7 +1437,13 @@ def main() -> int:
         "ms": ahead["kernel_ms"], "plain_ms": ahead["plain_ms"],
         "bound_ms": ahead["bound_us"] / 1e3, "bound_by": ahead["bound_by"],
         "library_ms": ahead["library_ms"], "shapes": attn_rows,
-        "model_check": model_row, "serving": served(lserve)}, {
+        "model_check": model_row, "serving": served(lserve),
+        "model_checks": {"internvl2_2b": vision_row,
+                         "mixtral_8x22b": moe_row},
+        "servings": {"internvl2_2b": served(vserve),
+                     "mixtral_8x22b": served(mserve)
+                     | {"peak_bytes": mserve["peak_bytes"]}
+                     | mserve["after"]}}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": sum(by_path("flash_attention").values()),
@@ -1207,7 +1464,7 @@ def main() -> int:
         "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_us"] / 1e3, "bound_by": shead["bound_by"],
         "library_ms": None, "shapes": scan_rows}]}))
-    # -- 9. the last line ---------------------------------------------------
+    # -- 11. the last line --------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -65,11 +65,14 @@ def _numpy_bfloat16() -> Optional[np.dtype]:
 def tensor_to_numpy(t: torch.Tensor, bf16_bits: bool = False) -> np.ndarray:
     """A host copy of `t`.  A bf16 tensor comes back as numpy's bfloat16
     where one is registered, else (or with `bf16_bits`) as its uint16 bit
-    pattern."""
-    t = t.detach().cpu()
+    pattern.  A device tensor is copied once (the D2H copy), a host
+    tensor once (it must not alias the caller's)."""
+    t = t.detach()
+    t = (t.clone(memory_format=torch.contiguous_format)
+         if t.device.type == "cpu" else t.cpu())
     if t.dtype != torch.bfloat16:
-        return t.numpy().copy()
-    bits = t.view(torch.int16).numpy().view(np.uint16).copy()
+        return t.numpy()
+    bits = t.view(torch.int16).numpy().view(np.uint16)
     bf16 = None if bf16_bits else _numpy_bfloat16()
     return bits if bf16 is None else bits.view(bf16)
 

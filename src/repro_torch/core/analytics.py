@@ -41,9 +41,13 @@ def assign_partial(points: torch.Tensor, centroids: torch.Tensor):
 
     points (N,D), centroids (K,D) -> (sums (K,D), counts (K,), sse ()).
     Uses the |x-c|^2 = |x|^2 - 2 x.c + |c|^2 form, computed by the fused
-    kmeans_assign kernel (dispatched on the points' device).  The
-    centroids follow the points onto their device (a (K,D) copy).
+    kmeans_assign kernel (dispatched on the points' device).  Points in
+    any type but float32 and bfloat16 are cast to float32, as the JAX
+    package casts every input; the centroids follow the points onto their
+    device (a (K,D) copy).
     """
+    if points.dtype not in (torch.float32, torch.bfloat16):
+        points = points.float()
     return kmeans_assign_op(points, centroids.to(points.device))
 
 

@@ -7,6 +7,7 @@ the host by accident.  Tests pass ``device="cpu"`` explicitly.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Union
 
 import numpy as np
@@ -37,7 +38,15 @@ def to_device(value, device: DeviceLike = None) -> torch.Tensor:
     It never aliases the caller's buffer (including the read-only views
     the data plane hands out): ``torch.from_numpy`` would share the bytes
     and let a later write reach the store (the mutation contract in
-    ``buf.py``)."""
+    ``buf.py``).  To a card the transfer is that copy, with no host copy
+    before it (a model shard may be tens of GB)."""
     dev = resolve_device(device)
-    arr = np.array(value)           # always an owned, writable copy
-    return torch.from_numpy(arr).to(dev)
+    if dev.type == "cpu":
+        return torch.from_numpy(np.array(value))   # owned, writable copy
+    arr = np.asarray(value)
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
+    with warnings.catch_warnings():
+        # a read-only view is only read here, by the host-to-device copy
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(arr).to(dev)

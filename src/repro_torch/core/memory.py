@@ -468,6 +468,11 @@ class HostMemoryBackend(StorageBackend):
             return name in self._store
 
 
+# the 64-bit types ``jax.device_put`` narrows with x64 off, and what to
+_NARROW_64 = {torch.float64: torch.float32, torch.int64: torch.int32,
+              torch.uint64: torch.uint32, torch.complex128: torch.complex64}
+
+
 class DeviceBackend(StorageBackend):
     """Device-resident torch.Tensors on one pilot's device.
 
@@ -481,6 +486,11 @@ class DeviceBackend(StorageBackend):
     ``get`` hands out a read-only host view on the CPU and an owned D2H
     copy for CUDA.  ``get_device`` returns the stored tensor itself, for
     kernels that read it in place; callers must not write into it.
+
+    A 64-bit array is stored at 32 bits (float64 -> float32, int64 ->
+    int32, uint64 -> uint32, complex128 -> complex64) and charged at its
+    narrowed size, as the JAX package's ``jax.device_put`` stores it with
+    x64 off.
     """
     tier = "device"
 
@@ -496,6 +506,9 @@ class DeviceBackend(StorageBackend):
             arr = value.detach().to(self.device, copy=True)
         else:
             arr = to_device(value, self.device)
+        narrow = _NARROW_64.get(arr.dtype)
+        if narrow is not None:
+            arr = arr.to(narrow)
         self.profile.charge(int(arr.nbytes), write=True)
         with self._lock:
             self._store[name] = arr

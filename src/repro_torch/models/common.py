@@ -56,6 +56,9 @@ def stack_specs(tree, num: int, logical: str = "layers"):
         s, shape=(num,) + s.shape, logical=(logical,) + s.logical), tree)
 
 
+DRAW_ELEMENTS = 1 << 28       # fp32 elements per draw of a random leaf (1 GiB)
+
+
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
     if spec.init == "zeros":
@@ -79,9 +82,17 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         fan_in = (spec.shape[0] if len(spec.shape) >= 2
                   else max(spec.shape[-1], 1))
         scale = 1.0 / np.sqrt(fan_in)
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * scale).to(spec.dtype)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    flat = out.view(-1)
+    # drawn in fp32 in slices of at most DRAW_ELEMENTS, each scaled and
+    # cast into the leaf: a whole-leaf fp32 draw of one stacked expert
+    # leaf at Mixtral's widths would take twice the leaf's bf16 bytes twice
+    for a in range(0, flat.numel(), DRAW_ELEMENTS):
+        n = min(DRAW_ELEMENTS, flat.numel() - a)
+        x = torch.randn(n, generator=generator, dtype=torch.float32,
+                        device=device)
+        flat[a:a + n] = x.mul_(scale)
+    return out
 
 
 def init_params(spec_tree, generator: torch.Generator,

@@ -5,20 +5,26 @@
   prefill(p, batch, max_len)     -> (last_logits, cache)
   decode(p, cache, tokens, positions) -> (logits, cache), cache in place
   cache_spec(batch, max_len)     -> tree of (shape, logical_axes)
+  token_seq_len(seq_len)         text tokens in a sequence of seq_len
 
-The port of ``repro/models/model.py`` for the dense GQA, SSM and hybrid
-families.  Prefill and decode run under ``torch.inference_mode()``.  Cache
-layouts follow the JAX package: the dense and SSM families stack their
-layers' caches, ``{"main": {"kv": {"k","v","pos"}}}`` and ``{"main":
-{"ssm": {"conv","ssm"}}}`` with a leading layer axis; the hybrid (parallel
-SSM) family keeps a tuple of per-layer ``{"kv", "ssm"}`` dicts, each
-layer's KV cache as long as its own window (a rolling ``window``-slot
-cache on sliding-window layers, ``max_len`` slots on global ones).  Decode
+The port of ``repro/models/model.py`` for the dense GQA, MoE (GQA
+attention), SSM, hybrid and vision families.  Prefill and decode run
+under ``torch.inference_mode()``.  Cache layouts follow the JAX package:
+the dense, MoE, vision and SSM families stack their layers' caches,
+``{"main": {"kv": {"k","v","pos"}}}`` and ``{"main": {"ssm":
+{"conv","ssm"}}}`` with a leading layer axis, and a config with
+``moe.first_k_dense`` puts its leading dense layers' cache under
+``"dense"`` beside ``"main"``; the hybrid (parallel SSM) family keeps a
+tuple of per-layer ``{"kv", "ssm"}`` dicts, each layer's KV cache as long
+as its own window (a rolling ``window``-slot cache on sliding-window
+layers, ``max_len`` slots on global ones).  A vision config prepends the
+projected patch embeddings (``batch["patch_embeds"]``, (B, Nv, Dv)) to
+the text, so text position t sits at sequence position Nv + t.  Decode
 walks the layers in a Python loop and writes each layer's cache in place
 (``_scan_decode`` in the JAX package carries the cache through a scan for
 the same reason), so `decode` returns the very cache objects it was
-given.  Training (``train_forward``) comes with the training slice; the
-other families raise NotImplementedError.
+given.  Training (``train_forward``) comes with the training slice; MLA,
+multi-token prediction and enc-dec raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -26,13 +32,14 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import init_params
+from repro_torch.models.common import init_params, linear
 
 
 @dataclasses.dataclass
@@ -44,6 +51,10 @@ class Model:
     decode: Callable
     cache_spec: Callable
 
+    def token_seq_len(self, seq_len: int) -> int:
+        """Text-token count for a given total sequence length."""
+        return seq_len - self.cfg.vision_tokens
+
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -54,8 +65,15 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    """Token embedding -> (x, positions)."""
+    """Token (+ vision) embedding -> (x, positions)."""
     x = tfm.embed_tokens(params, batch["tokens"], cfg)
+    if cfg.vision_tokens:
+        pe = batch["patch_embeds"].to(x.dtype)             # (B, Nv, Dv)
+        v = linear(pe, params["proj1"])
+        # jax.nn.gelu's default is the tanh approximation
+        v = F.gelu(v.float(), approximate="tanh").to(x.dtype)
+        v = linear(v, params["proj2"])
+        x = torch.cat([v, x], dim=1)
     b, s = x.shape[:2]
     return x, _positions(b, s, x.device)
 
@@ -99,14 +117,10 @@ def _stack_cache_spec(cfg: ModelConfig, num_layers: int, batch: int,
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.is_moe:
-        return "MoE"
     if cfg.attention not in ("gqa", "none"):
         return f"attention={cfg.attention!r}"
     if cfg.encoder_layers:
         return "enc-dec"
-    if cfg.vision_tokens:
-        return "vision"
     if cfg.mtp_depth:
         return "multi-token prediction"
     return None
@@ -122,7 +136,7 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"build_model({cfg.name}): the {kind} family is not ported yet "
             f"(ROADMAP.md, 'Model families'); the port serves dense GQA, "
-            f"SSM and hybrid models")
+            f"MoE, SSM, hybrid and vision models")
     specs = tfm.model_specs(cfg)
 
     def init(generator: torch.Generator, device: DeviceLike = None):
@@ -131,10 +145,10 @@ def build_model(cfg: ModelConfig) -> Model:
     @torch.inference_mode()
     def prefill(params, batch, max_len: int):
         x, pos = _embed_inputs(params, batch, cfg)
-        h, collected = tfm.decoder_forward(params, x, cfg, positions=pos,
-                                           need_cache=True)
-        kvs, states = collected["kv"], collected["ssm"]
+        h, _, collected = tfm.decoder_forward(params, x, cfg, positions=pos,
+                                              need_cache=True)
         if cfg.parallel_ssm:  # hybrid: per-layer caches, per-layer windows
+            kvs, states = collected["main"]["kv"], collected["main"]["ssm"]
             cache: Any = []
             for i in range(cfg.num_layers):
                 k, v = kvs[i]
@@ -145,16 +159,19 @@ def build_model(cfg: ModelConfig) -> Model:
                               "ssm": states[i]})
             cache = tuple(cache)
         else:
-            entry: Dict[str, Any] = {}
-            if kvs is not None:
-                entry["kv"] = _kv_cache_from_prefill(
-                    (torch.stack([k for k, _ in kvs]),
-                     torch.stack([v for _, v in kvs])),
-                    pos, max_len, cfg.sliding_window)
-            if states is not None:
-                entry["ssm"] = {n: torch.stack([st[n] for st in states])
-                                for n in ("conv", "ssm")}
-            cache = {"main": entry}
+            cache = {}
+            for name, got in collected.items():
+                kvs, states = got["kv"], got["ssm"]
+                entry: Dict[str, Any] = {}
+                if kvs is not None:
+                    entry["kv"] = _kv_cache_from_prefill(
+                        (torch.stack([k for k, _ in kvs]),
+                         torch.stack([v for _, v in kvs])),
+                        pos, max_len, cfg.sliding_window)
+                if states is not None:
+                    entry["ssm"] = {n: torch.stack([st[n] for st in states])
+                                    for n in ("conv", "ssm")}
+                cache[name] = entry
         logits = tfm.lm_logits(params, h[:, -1:], cfg)
         return logits[:, 0], cache
 
@@ -163,14 +180,18 @@ def build_model(cfg: ModelConfig) -> Model:
         """tokens: (B,1) int; positions: (B,) int32 absolute position."""
         x = tfm.embed_tokens(params, tokens, cfg)
         positions = positions.to(torch.int32)
-        for i in range(cfg.num_layers):
-            if cfg.parallel_ssm:
-                lc, window = cache[i], tfm._layer_window(cfg, i)
-            else:
-                lc = tfm.layer_slice(cache["main"], i)
-                window = cfg.sliding_window
-            x = tfm.layer_decode(tfm.layer_slice(params["layers"], i), x,
-                                 lc, cfg, positions=positions, window=window)
+        if cfg.parallel_ssm:
+            for i in range(cfg.num_layers):
+                x = tfm.layer_decode(
+                    tfm.layer_slice(params["layers"], i), x, cache[i], cfg,
+                    positions=positions, window=tfm._layer_window(cfg, i))
+        else:
+            for name, key, n in tfm.stacks(cfg):
+                for i in range(n):
+                    x = tfm.layer_decode(
+                        tfm.layer_slice(params[key], i), x,
+                        tfm.layer_slice(cache[name], i), cfg,
+                        positions=positions, window=cfg.sliding_window)
         logits = tfm.lm_logits(params, x, cfg)
         return logits[:, 0], cache
 
@@ -181,8 +202,9 @@ def build_model(cfg: ModelConfig) -> Model:
                                                 tfm._layer_window(cfg, i)),
                  "ssm": ssm_mod.init_ssm_state_spec(cfg, batch)}
                 for i in range(cfg.num_layers))
-        return {"main": _stack_cache_spec(cfg, cfg.num_layers, batch,
-                                          max_len, cfg.sliding_window)}
+        return {name: _stack_cache_spec(cfg, n, batch, max_len,
+                                        cfg.sliding_window)
+                for name, _, n in tfm.stacks(cfg)}
 
     return Model(cfg=cfg, specs=specs, init=init, prefill=prefill,
                  decode=decode, cache_spec=cache_spec)

@@ -1,23 +1,29 @@
-"""Decoder assembly for the dense GQA, SSM and hybrid families (llama, yi,
-starcoder2, falcon-mamba, hymba, ...).
+"""Decoder assembly for the dense GQA, MoE, SSM, hybrid and vision
+families (llama, yi, starcoder2, mixtral, falcon-mamba, hymba, internvl2,
+...).
 
-The port of the dense, SSM and parallel-SSM half of
-``repro/models/transformer.py``.  One layer definition parameterized by
-the attention kind (gqa | none) and the parallel-SSM flag; the stacked
-``(L, ...)`` layer leaves run in a Python loop over layers, in place of
-``lax.scan``, each layer with its own window (hymba's global layers attend
-in full).  Nothing here is differentiated, so there is no remat.  MoE,
-MLA, enc-dec and vision stacks come with the other model families
-(``models/model.py`` raises for them).
+The port of the decoder half of ``repro/models/transformer.py``.  One
+layer definition parameterized by the attention kind (gqa | none), the
+FFN kind (dense | moe) and the parallel-SSM flag; the stacked ``(L, ...)``
+layer leaves run in a Python loop over layers, in place of ``lax.scan``,
+each layer with its own window (hymba's global layers attend in full).  A
+config with ``moe.first_k_dense`` keeps its leading dense layers in a
+stack of their own (``layers_dense``) before the MoE stack (``layers``);
+a vision config adds the projector (``proj1``, ``proj2``) that
+``models/model.py`` applies to the patch embeddings.  Nothing here is
+differentiated, so there is no remat; the MoE aux loss is summed and
+returned, and the serving stack drops it.  MLA, MTP and enc-dec stacks
+come with their model families (``models/model.py`` raises for them).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamSpec, dense_ffn, linear,
                                        rms_norm, stack_specs, tree_map)
@@ -40,7 +46,7 @@ def dense_ffn_specs(cfg: ModelConfig, d_ff: int) -> Dict[str, ParamSpec]:
     return specs
 
 
-def layer_specs(cfg: ModelConfig,
+def layer_specs(cfg: ModelConfig, ffn: str = "dense",
                 d_ff: Optional[int] = None) -> Dict[str, Any]:
     d = cfg.d_model
     specs: Dict[str, Any] = {"norm1": ParamSpec((d,), ("embed",), "ones")}
@@ -51,9 +57,12 @@ def layer_specs(cfg: ModelConfig,
         if cfg.parallel_ssm:
             specs["ssm_norm"] = ParamSpec((d,), ("embed",), "ones")
             specs["attn_norm"] = ParamSpec((d,), ("embed",), "ones")
-    if d_ff or cfg.d_ff:
+    if ffn == "dense" and (d_ff or cfg.d_ff):
         specs["norm2"] = ParamSpec((d,), ("embed",), "ones")
         specs["ffn"] = dense_ffn_specs(cfg, d_ff or cfg.d_ff)
+    elif ffn == "moe":
+        specs["norm2"] = ParamSpec((d,), ("embed",), "ones")
+        specs["moe"] = moe_mod.moe_specs(cfg)
     return specs
 
 
@@ -62,11 +71,35 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs: Dict[str, Any] = {
         "embed": ParamSpec((v, d), ("vocab", "embed"), "normal", scale=0.02),
         "final_norm": ParamSpec((d,), ("embed",), "ones"),
-        "layers": stack_specs(layer_specs(cfg), cfg.num_layers),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, v), ("embed", "vocab"), "scaled")
+    if cfg.vision_tokens:  # vlm projector (stubbed ViT -> LM)
+        dv = cfg.vision_embed_dim
+        specs["proj1"] = ParamSpec((dv, d), (None, "embed"), "scaled")
+        specs["proj2"] = ParamSpec((d, d), ("embed", None), "scaled")
+    if cfg.is_moe and cfg.moe.first_k_dense:
+        dense_ff = cfg.moe.first_dense_d_ff or cfg.d_ff
+        specs["layers_dense"] = stack_specs(
+            layer_specs(cfg, ffn="dense", d_ff=dense_ff),
+            cfg.moe.first_k_dense)
+        specs["layers"] = stack_specs(
+            layer_specs(cfg, ffn="moe"),
+            cfg.num_layers - cfg.moe.first_k_dense)
+    else:
+        specs["layers"] = stack_specs(
+            layer_specs(cfg, ffn="moe" if cfg.is_moe else "dense"),
+            cfg.num_layers)
     return specs
+
+
+def stacks(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
+    """The decoder's layer stacks in order: (cache name, param name, layer
+    count) -- ``("dense", "layers_dense", k)`` first where the config has
+    ``moe.first_k_dense``, then ``("main", "layers", ...)``."""
+    k = cfg.moe.first_k_dense if cfg.is_moe else 0
+    out = [("dense", "layers_dense", k)] if k else []
+    return out + [("main", "layers", cfg.num_layers - k)]
 
 
 # ---------------------------------------------------------------------------
@@ -85,17 +118,22 @@ def layer_slice(stack: Params, i: int) -> Params:
     return tree_map(lambda t: t[i], stack)
 
 
-def _ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if "ffn" not in lp:
-        return x
-    h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + dense_ffn(h2, lp["ffn"], cfg.ffn_act).to(x.dtype)
+def _ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The layer's FFN half with its residual -> (x, MoE aux loss or 0)."""
+    if "ffn" in lp:
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        return x + dense_ffn(h2, lp["ffn"], cfg.ffn_act).to(x.dtype), 0.0
+    if "moe" in lp:
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        y, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
+        return x + y.to(x.dtype), aux
+    return x, 0.0
 
 
 def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions, window: int, need_cache: bool = False):
-    """Full-sequence layer.  Returns (x, (k, v) or None, ssm state or
-    None); the caches only with `need_cache`."""
+    """Full-sequence layer.  Returns (x, MoE aux loss or 0, (k, v) or
+    None, ssm state or None); the caches only with `need_cache`."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     cache_kv = new_ssm_state = None
     branch = 0.0
@@ -120,7 +158,8 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             branch = branch + s_out
     x = x + branch.to(x.dtype)
-    return _ffn(lp, x, cfg), cache_kv, new_ssm_state
+    x, aux = _ffn(lp, x, cfg)
+    return x, aux, cache_kv, new_ssm_state
 
 
 def layer_decode(lp: Params, x: torch.Tensor, cache, cfg: ModelConfig, *,
@@ -143,7 +182,7 @@ def layer_decode(lp: Params, x: torch.Tensor, cache, cfg: ModelConfig, *,
         else:
             branch = branch + s_out
     x = x + branch.to(x.dtype)
-    return _ffn(lp, x, cfg)
+    return _ffn(lp, x, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -152,22 +191,30 @@ def layer_decode(lp: Params, x: torch.Tensor, cache, cfg: ModelConfig, *,
 
 def decoder_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions, need_cache: bool = False):
-    """Runs the decoder stack on embedded inputs -> (hidden, caches).  With
-    `need_cache`, caches is ``{"kv": [(k, v) per layer] or None, "ssm":
-    [{"conv", "ssm"} per layer] or None}``, k/v (B,S,nkv,hd); else None."""
-    kvs: List[Any] = []
-    states: List[Any] = []
-    for i in range(cfg.num_layers):
-        x, kv, st = layer_forward(layer_slice(params["layers"], i), x, cfg,
-                                  positions=positions,
-                                  window=_layer_window(cfg, i),
-                                  need_cache=need_cache)
-        kvs.append(kv)
-        states.append(st)
-    if not need_cache:
-        return x, None
-    return x, {"kv": kvs if cfg.attention == "gqa" else None,
-               "ssm": states if cfg.ssm is not None else None}
+    """Runs the decoder stacks on embedded inputs -> (hidden, aux, caches).
+    aux sums the MoE layers' aux losses (0 without MoE).  With
+    `need_cache`, caches maps each stack's cache name (``stacks``) to
+    ``{"kv": [(k, v) per layer] or None, "ssm": [{"conv", "ssm"} per
+    layer] or None}``, k/v (B,S,nkv,hd); else None."""
+    aux = 0.0
+    caches: Dict[str, Any] = {}
+    for name, key, n in stacks(cfg):
+        kvs: List[Any] = []
+        states: List[Any] = []
+        for i in range(n):
+            # the dense stack attends with the config's window throughout
+            window = (_layer_window(cfg, i) if name == "main"
+                      else cfg.sliding_window)
+            x, a, kv, st = layer_forward(layer_slice(params[key], i), x,
+                                         cfg, positions=positions,
+                                         window=window,
+                                         need_cache=need_cache)
+            aux = aux + a
+            kvs.append(kv)
+            states.append(st)
+        caches[name] = {"kv": kvs if cfg.attention == "gqa" else None,
+                        "ssm": states if cfg.ssm is not None else None}
+    return x, aux, (caches if need_cache else None)
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig):

@@ -332,6 +332,12 @@ class ServingEngine:
         self._bf16 = [t.dtype == torch.bfloat16 for _, t in flat]
         np_leaves = [tensor_to_numpy(t, bf16_bits=True) for _, t in flat]
         self._n_shards = len(np_leaves)
+        # the shards are the params from here on: drop the engine's
+        # references before any pilot rebuilds them on its device, so that
+        # one device copy of the weights is live (none, once the caller
+        # drops its own)
+        del flat
+        self._params = None
         pds = self.session.data_service
         durable = pds.checkpoint_store is not None
         repl = (self._replication if self._replication is not None
@@ -451,7 +457,14 @@ class ServingEngine:
         return pilot.jit_cached((self.name, "runtime"), build)
 
     def _prefill_batch(self, ctx_rows: np.ndarray, device) -> dict:
-        return {"tokens": to_device(ctx_rows, device)}
+        batch = {"tokens": to_device(ctx_rows, device)}
+        cfg = self.cfg
+        if getattr(cfg, "vision_tokens", 0):
+            # the ViT is a stub: zero patch embeddings, as the JAX engine
+            batch["patch_embeds"] = torch.zeros(
+                (len(ctx_rows), cfg.vision_tokens, cfg.vision_embed_dim),
+                dtype=torch.float32, device=device)
+        return batch
 
     # -- the continuous-batching loop ------------------------------------
     def _serve_loop(self, rep: _Replica) -> int:
@@ -468,6 +481,8 @@ class ServingEngine:
         rt = self._pilot_runtime(pilot)
         dev = rt.device
         B = self.batch_size
+        # a vision prefix shifts every text position
+        vision = getattr(self.cfg, "vision_tokens", 0) or 0
         rows: List[Optional[ServeRequest]] = [None] * B
         row_gen = np.zeros(B, np.int64)       # tokens generated in-row
         row_out: List[List[int]] = [[] for _ in range(B)]
@@ -489,7 +504,7 @@ class ServingEngine:
             rep.active[r] = req
             row_gen[r] = 0
             row_out[r] = []
-            positions[r] = len(req.ctx) - 1
+            positions[r] = len(req.ctx) + vision - 1
 
         def fill_wave(reqs: List[ServeRequest]) -> None:
             """First fill only (cache is None): batched prefill of every
@@ -510,7 +525,7 @@ class ServingEngine:
                 rep.active[r] = req
                 row_gen[r] = 0
                 row_out[r] = []
-                positions[r] = len(req.ctx) - 1
+                positions[r] = len(req.ctx) + vision - 1
 
         while True:
             if rep.stop.is_set():

@@ -57,6 +57,46 @@ def test_to_device_never_aliases_numpy():
     assert float(t[0]) == 0.0
 
 
+# -- 64-bit arrays on the device tier: narrowed as jax.device_put does ------
+@pytest.mark.parametrize("kind,want_dtype,want_nbytes", [
+    ("float64", np.float32, 32000), ("int64", np.int32, 4000)])
+def test_device_tier_narrows_64_bit_arrays_as_the_reference(
+        kind, want_dtype, want_nbytes):
+    arr = (np.random.default_rng(0).normal(size=(1000, 8))
+           if kind == "float64" else np.arange(1000, dtype=np.int64))
+    got = []
+    for pkg in (ref_core, port_core):
+        be = pkg.make_backend("device", **_dev_kw(pkg))
+        be.put("a", arr)
+        host = np.asarray(be.get("a"))
+        assert host.dtype == want_dtype, (pkg.__name__, host.dtype)
+        assert be.nbytes("a") == want_nbytes, (pkg.__name__, be.nbytes("a"))
+        got.append(host)
+    stored = be.get_device("a")
+    assert stored.dtype == getattr(torch, np.dtype(want_dtype).name)
+    assert int(stored.nbytes) == want_nbytes
+    np.testing.assert_array_equal(got[1], got[0])
+
+
+@pytest.mark.parametrize("tier", ["device", "host"])
+def test_kmeans_over_float64_points_matches_the_reference(tier):
+    """float64 blobs on either tier: the port stores (device tier) and
+    assigns (both tiers) them at fp32, as the JAX package does, with the
+    same SSE history."""
+    pts = np.random.default_rng(0).normal(size=(1000, 8))
+    hist = []
+    for pkg in (ref_core, port_core):
+        backends = {"host": pkg.make_backend("host"),
+                    "device": pkg.make_backend("device", **_dev_kw(pkg))}
+        du = pkg.DataUnit.from_array("p64", pts, 4, backends, tier=tier)
+        if tier == "device":
+            assert sum(backends["device"].nbytes(du._key(i))
+                       for i in range(4)) == 32000
+        hist.append(pkg.kmeans(du, k=5, iters=4, seed=0).sse_history)
+    assert du.tier == tier
+    np.testing.assert_allclose(hist[1], hist[0], rtol=1e-5)
+
+
 # -- LocalityPolicy: the same scores, bit for bit ---------------------------
 def _managed_du(pkg, name, device_budget, parts=4):
     tm = pkg.TierManager({"host": pkg.make_backend("host"),

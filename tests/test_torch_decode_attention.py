@@ -356,6 +356,55 @@ def test_cuda_kernel_hymba_decode_shapes_on_the_card(kind):
                        "bfloat16", 0)
 
 
+def _smem_bytes(dtype, h, stages):
+    """decode_attention.cu's Layout<T, HD>::bytes(stages), transcribed:
+    per warp a ring of (K, V) quarters of 16 rows of HD + 16 bytes, the
+    warps' quarter lists, the block's partial, the cluster's shares, and
+    for fp32 q and the warps' weights."""
+    hd = next(w for w in (32, 64, 128, 256) if h <= w)
+    es = 2 if dtype == "bfloat16" else 4
+    stage = 2 * 16 * (hd + 16 // es) * es
+    size = 4 * stage * stages + 4 * 128 * 8                  # rings, lists
+    size += (2 * 8 + 8 * hd) * 4                             # partial
+    size += (2 * 8 * cuda_mod.MAX_CLUSTER + 8 * hd
+             + cuda_mod.MAX_CLUSTER) * 4                      # cluster recv
+    if es == 4:
+        size += 8 * hd * 4 + 4 * (8 * 16 + 8) * 4           # q, weights
+    return size
+
+
+@pytest.mark.parametrize("b,sc,nq,nkv", [(8, 4096, 48, 8), (8, 1024, 16, 8),
+                                         (1, 4096, 48, 8)])
+def test_head_width_128_plans_a_ring_that_fits_shared_memory(b, sc, nq,
+                                                              nkv):
+    """Mixtral's decode (48/8 heads of 128 over a 4096-slot rolling cache)
+    and InternVL2's (16/8 over 1024 slots) in bf16: the plan's ring depth
+    fits a block's shared memory with no stage dropped, and
+    BLOCKS_PER_SM blocks of it fit an SM (228 KB on an H100)."""
+    nsplit, per, stages = cuda_mod.plan(b, nkv, nq // nkv, sc, num_sms=132)
+    assert stages == min(per, cuda_mod.STAGES) == 2
+    smem = _smem_bytes("bfloat16", 128, stages)
+    assert smem == 83072
+    assert smem <= cuda_mod.MAX_SMEM_BYTES
+    assert cuda_mod.BLOCKS_PER_SM * smem <= 228 * 1024
+    assert _smem_bytes("float32", 128, stages) <= cuda_mod.MAX_SMEM_BYTES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mixtral", "internvl2"])
+def test_cuda_kernel_head_width_128_shapes_on_the_card(kind):
+    """Mixtral-8x22B's decode (48/8 heads of 128, a 4096-slot rolling cache
+    under the 4096 window, rows past the window) and InternVL2-2B's (16/8
+    heads of 128, 1024 slots full)."""
+    _card()
+    if kind == "mixtral":
+        _check_on_card(_rolling(8, 4096, 48, 8, 128, first=4608, seed=10),
+                       "bfloat16", 4096)
+    else:
+        _check_on_card(_inputs(8, 1024, 16, 8, 128, 1.0, seed=10),
+                       "bfloat16", 0)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_ignores_nan_in_empty_slots_on_the_card():
     _card()

@@ -215,6 +215,7 @@ CARD = [((1, 2048, 25, 5, 64), "bfloat16", True, 1024),
         ((8, 512, 25, 5, 64), "bfloat16", True, 1024),
         ((8, 128, 32, 8, 64), "bfloat16", True, 0),
         ((2, 384, 36, 4, 128), "bfloat16", True, 0),      # StarCoder2-7B
+        ((1, 4608, 48, 8, 128), "bfloat16", True, 4096),  # Mixtral refill
         ((2, 256, 8, 2, 32), "bfloat16", True, 0),
         ((2, 1000, 6, 3, 64), "bfloat16", True, 100),
         ((2, 300, 8, 8, 64), "bfloat16", True, 0),        # G = 1

@@ -337,3 +337,24 @@ def test_cuda_kernel_partitions_repeat_bit_for_bit_on_the_card(n, k):
         assert torch.equal(a, b)
     _assert_close([t.cpu() for t in first],
                   [t.cpu() for t in kmeans_assign_ref(tp, tc)], "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["device", "host"])
+def test_kmeans_over_float64_points_on_the_card(tier):
+    """float64 points reach the kernel as fp32 from either tier (the device
+    tier stores them narrowed, assign_partial casts host-tier points), one
+    launch per partition and iteration, with the CPU run's SSE history."""
+    _card()
+    from repro_torch.core import DataUnit, kmeans, make_backend
+    pts = np.random.default_rng(0).normal(size=(1000, 8))
+    hist = []
+    for dev in ("cuda", "cpu"):
+        backends = {"host": make_backend("host"),
+                    "device": make_backend("device", device=dev)}
+        du = DataUnit.from_array("p64", pts, 4, backends, tier=tier)
+        before = cuda_kmeans.LAUNCHES
+        hist.append(kmeans(du, k=5, iters=4, seed=0).sse_history)
+        launched = cuda_kmeans.LAUNCHES - before
+        assert launched == (16 if dev == "cuda" else 0), (dev, launched)
+    np.testing.assert_allclose(hist[0], hist[1], rtol=1e-4)

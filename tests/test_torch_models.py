@@ -196,8 +196,7 @@ def test_other_dense_configs_match_the_reference_fp32(arch):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v3_671b",
-                                  "whisper_base", "internvl2_2b"])
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "whisper_base"])
 def test_other_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="Model families"):
         build_model(reduced(get_config(arch)))
@@ -371,3 +370,250 @@ def test_family_init_matches_the_reference_tree(arch):
     dt = torch.nn.functional.softplus(ssm["dt_bias"])
     assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
     assert float(dt.max()) <= 1e-1 * (1 + 1e-5)
+
+
+# -- the MoE and vision families ----------------------------------------------
+M_PROMPT, M_MAX_LEN = 40, 64     # prompts past the reduced window of 32
+
+
+def _moe_over(cf, **moe):
+    """reduced(mixtral_8x22b) overrides with the MoE part replaced."""
+    import dataclasses
+    cfg = reduced(get_config("mixtral_8x22b"))
+    return {"moe": dataclasses.replace(cfg.moe, capacity_factor=cf, **moe)}
+
+
+def _pair(arch, dtype, over, decode_kernel=True):
+    """The JAX model and the port's (the port with `decode_kernel`), the
+    JAX init carried across at `dtype` (leaves cast to fp32 for fp32)."""
+    import dataclasses
+    rcfg = ref_reduced(ref_get_config(arch), dtype=dtype)
+    pcfg = reduced(get_config(arch), dtype=dtype, decode_kernel=decode_kernel)
+    if "moe" in over:
+        rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(
+            rcfg.moe, **dataclasses.asdict(over["moe"])))
+        pcfg = dataclasses.replace(pcfg, moe=over["moe"])
+    ref, port = ref_build_model(rcfg), build_model(pcfg)
+    jp = _ref_params(ref, dtype)
+    return ref, port, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
+                                            "cpu")
+
+
+def _batch(cfg, b, s, seed, jax_side):
+    """Prompts (and, for a vision config, patch embeddings) from a seed."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.vision_tokens:
+        out["patch_embeds"] = rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.vision_embed_dim)).astype(np.float32)
+    conv = jnp.asarray if jax_side else torch.from_numpy
+    return {k: conv(v) for k, v in out.items()}
+
+
+def _gen(m, params, batch, feed, *, jax_side, steps=STEPS):
+    """Prefill + `steps` decode steps teaching `feed` (None: greedy) at
+    text positions offset by the vision prefix -> (logits per step, tokens
+    fed, prefill cache)."""
+    logits, cache = m.prefill(params, batch, max_len=M_MAX_LEN)
+    first = cache
+    b, s = batch["tokens"].shape
+    seq = s + m.cfg.vision_tokens
+    outs, fed = [np.asarray(logits if jax_side else logits.float(),
+                            np.float32)], []
+    for t in range(steps):
+        cur = (np.asarray(logits.argmax(-1), np.int32) if feed is None
+               else feed[t])
+        fed.append(cur)
+        pos = np.full((b,), seq + t, np.int32)
+        if jax_side:
+            logits, cache = m.decode(params, cache, jnp.asarray(cur)[:, None],
+                                     jnp.asarray(pos))
+        else:
+            logits, out = m.decode(params, cache,
+                                   torch.from_numpy(cur.copy())[:, None],
+                                   torch.from_numpy(pos))
+            assert out is cache              # decode updates in place
+        outs.append(np.asarray(logits if jax_side else logits.float(),
+                               np.float32))
+    return outs, fed, first
+
+
+# capacity factor 1.25 drops tokens in prefill (40 tokens x 2 of 4
+# experts, 25 slots each, on the prompts of seed 22) and in decode (B=2
+# rows regrouped into one group of 2 tokens, 1 slot per expert); 8.0 drops
+# none
+MOE_CASES = {"cf1.25": 1.25, "cf8": 8.0}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_fp32_prefill_and_greedy_decode_match_the_reference(
+        case, monkeypatch):
+    """reduced(mixtral_8x22b), fp32, prompts of 40 past the window of 32:
+    logits at atol 1e-4 and the same greedy tokens, kernel decode path."""
+    from repro_torch.models import moe
+    cf = MOE_CASES[case]
+    ref, port, jp, tp = _pair("mixtral_8x22b", "float32", _moe_over(cf))
+    dropped = []
+    positions = moe._positions_in_expert
+
+    def spy(flat):                      # count the port's dropped tokens
+        pos = positions(flat)
+        cap = max(1, int(cf * flat.shape[1] / port.cfg.moe.num_experts))
+        dropped.append(int((pos >= cap).sum()))
+        return pos
+
+    # seed 22: prompts whose prefill overflows an expert at cf 1.25
+    want, want_toks, _ = _gen(ref, jp, _batch(port.cfg, B, M_PROMPT, 22,
+                                              True), None, jax_side=True)
+    monkeypatch.setattr(moe, "_positions_in_expert", spy)
+    got, got_toks, _ = _gen(port, tp, _batch(port.cfg, B, M_PROMPT, 22,
+                                             False), None, jax_side=False)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(np.stack(got_toks), np.stack(want_toks))
+    n_layers = port.cfg.num_layers
+    assert len(dropped) == n_layers * (1 + STEPS)
+    if cf < 2:       # drops in prefill and in decode, the same as JAX's
+        assert sum(dropped[:n_layers]) > 0 and sum(dropped[n_layers:]) > 0
+    else:
+        assert sum(dropped) == 0
+
+
+def _bf16_within_rounding(arch, over, prompt_len, seed):
+    """bf16, the JAX side's greedy tokens taught to both: the port's logits
+    lie no further from the JAX package's bf16 logits than those lie from
+    the JAX package's fp32 run on the same params (cast) and tokens -- the
+    model-level bf16 rule of the chip checks.  Exact tokens are not held
+    in bf16: the two packages round attention differently by design (the
+    module doc), and on these random-weight configs the bf16 residual
+    stream reaches ~100, where one bf16 step is 0.5, so near-tied logits
+    may fall either way (12-14 of 14 argmaxes agreed over four seeds)."""
+    ref, port, jp, tp = _pair(arch, "bfloat16", over)
+    ref32 = _pair(arch, "float32", over)[0]
+    jp32 = jax.tree.map(lambda x: x.astype(jnp.float32), jp)
+    want, feed, _ = _gen(ref, jp, _batch(port.cfg, B, prompt_len, seed,
+                                         True), None, jax_side=True)
+    want32, _, _ = _gen(ref32, jp32, _batch(port.cfg, B, prompt_len, seed,
+                                            True), feed, jax_side=True)
+    got, _, _ = _gen(port, tp, _batch(port.cfg, B, prompt_len, seed, False),
+                     feed, jax_side=False)
+    gap = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    bf16_err = max(float(np.abs(w - v).max()) for w, v in zip(want, want32))
+    assert all(np.isfinite(g).all() for g in got)
+    assert gap <= bf16_err, (gap, bf16_err)
+    return port, tp
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_bf16_prefill_and_decode_within_bf16_rounding(case):
+    """reduced(mixtral_8x22b) in bf16 (``_bf16_within_rounding``), the
+    router and its bias kept in fp32 as the JAX package keeps them."""
+    port, tp = _bf16_within_rounding("mixtral_8x22b",
+                                     _moe_over(MOE_CASES[case]), M_PROMPT, 22)
+    moe_p = tp["layers"]["moe"]
+    assert moe_p["router"].dtype == torch.float32
+    assert moe_p["w_gate"].dtype == torch.bfloat16
+
+
+def test_moe_dense_first_layer_and_shared_expert_match_the_reference():
+    """GQA + MoE with first_k_dense=1 (a dense stack and its own "dense"
+    cache before the MoE stack) and one shared expert, fp32, cf 1.25: the
+    logits, the greedy tokens and the cache spec of the JAX package."""
+    over = _moe_over(1.25, first_k_dense=1, first_dense_d_ff=96,
+                     num_shared_experts=1)
+    ref, port, jp, tp = _pair("mixtral_8x22b", "float32", over)
+    assert set(tp) >= {"layers_dense", "layers"}
+    assert "ffn" in tp["layers_dense"] and "moe" in tp["layers"]
+    assert tp["layers_dense"]["ffn"]["w_up"].shape == (1, 64, 96)
+    assert "shared_gate" in tp["layers"]["moe"]
+    want, want_toks, _ = _gen(ref, jp, _batch(port.cfg, B, M_PROMPT, 23,
+                                              True), None, jax_side=True)
+    got, got_toks, cache = _gen(port, tp, _batch(port.cfg, B, M_PROMPT, 23,
+                                                 False), None,
+                                jax_side=False)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(np.stack(got_toks), np.stack(want_toks))
+    assert set(cache) == {"dense", "main"}
+    is_spec = lambda t: (isinstance(t, tuple) and len(t) == 2
+                         and isinstance(t[0], tuple))
+    want_spec = jax.tree.leaves(ref.cache_spec(B, M_MAX_LEN), is_leaf=is_spec)
+    got_spec = jax.tree.leaves(port.cache_spec(B, M_MAX_LEN), is_leaf=is_spec)
+    assert [(tuple(s), tuple(l)) for s, l in got_spec] == \
+        [(tuple(s), tuple(l)) for s, l in want_spec]
+    assert [tuple(t.shape) for t in tree_leaves(cache)] == \
+        [tuple(s) for s, _ in got_spec]
+
+
+def test_vision_fp32_prefill_and_greedy_decode_match_the_reference():
+    """reduced(internvl2_2b), fp32: patch embeddings from a seed through
+    the projector (GELU, tanh form) before the text, decode at text
+    positions offset by the 4 vision tokens; logits at atol 1e-4 and the
+    same greedy tokens."""
+    ref, port, jp, tp = _pair("internvl2_2b", "float32", {})
+    assert tuple(tp["proj1"].shape) == (32, 64)
+    want, want_toks, _ = _gen(ref, jp, _batch(port.cfg, B, PROMPT, 24, True),
+                              None, jax_side=True)
+    got, got_toks, cache = _gen(port, tp, _batch(port.cfg, B, PROMPT, 24,
+                                                 False), None,
+                                jax_side=False)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(np.stack(got_toks), np.stack(want_toks))
+    nv = port.cfg.vision_tokens
+    pos = cache["main"]["kv"]["pos"][0, 0]
+    assert pos[:nv + PROMPT].tolist() == list(range(nv + PROMPT))
+
+
+def test_vision_bf16_prefill_and_decode_within_bf16_rounding():
+    """reduced(internvl2_2b) in bf16 (``_bf16_within_rounding``)."""
+    _bf16_within_rounding("internvl2_2b", {}, PROMPT, 24)
+
+
+def test_vision_token_seq_len_and_patch_embeds_move_the_logits():
+    """token_seq_len as the JAX package's; the logits depend on the patch
+    embeddings (the projector is on the path)."""
+    ref, port, _, tp = _pair("internvl2_2b", "float32", {})
+    for n in (4, 20, 64):
+        assert port.token_seq_len(n) == ref.token_seq_len(n) == n - 4
+    batch = _batch(port.cfg, B, PROMPT, 25, False)
+    a, _ = port.prefill(tp, batch, max_len=M_MAX_LEN)
+    batch["patch_embeds"] = batch["patch_embeds"] + 1.0
+    b, _ = port.prefill(tp, batch, max_len=M_MAX_LEN)
+    assert float((a - b).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "internvl2_2b"])
+def test_moe_and_vision_init_match_the_reference_tree(arch):
+    """Same paths, shapes and dtypes as the JAX init (the router and its
+    bias in fp32)."""
+    ref, port = (ref_build_model(ref_reduced(ref_get_config(arch))),
+                 build_model(reduced(get_config(arch))))
+    jp = jax.tree.map(np.asarray, ref.init(jax.random.key(0)))
+    tp = port.init(torch.Generator().manual_seed(0), device="cpu")
+    paths = lambda t: [jax.tree_util.keystr(k) for k, _ in
+                       jax.tree_util.tree_flatten_with_path(t)[0]]
+    assert paths(tp) == paths(jp)
+    for w, g in zip(jax.tree.leaves(jp), jax.tree.leaves(tp)):
+        assert tuple(g.shape) == w.shape
+        assert str(g.dtype).split(".")[-1] == w.dtype.name
+
+
+def test_init_draws_a_leaf_in_slices(monkeypatch):
+    """A leaf larger than one draw is drawn slice by slice into the target
+    dtype, with the scale of a whole draw, the same on a second init."""
+    from repro_torch.models import common
+    monkeypatch.setattr(common, "DRAW_ELEMENTS", 1000)
+    spec = common.ParamSpec((4, 64, 128), ("layers", "embed", "mlp"),
+                            "scaled")
+    leaf = common._init_leaf(spec, torch.Generator().manual_seed(0),
+                             torch.device("cpu"))
+    again = common._init_leaf(spec, torch.Generator().manual_seed(0),
+                              torch.device("cpu"))
+    assert leaf.dtype == torch.bfloat16 and tuple(leaf.shape) == spec.shape
+    assert torch.equal(leaf, again)
+    std = float(leaf.float().std())
+    assert abs(std - 0.5) < 0.02, std             # 1/sqrt(fan_in = 4)
+    # slices are independent draws, not one slice repeated
+    flat = leaf.view(-1)
+    assert not torch.equal(flat[:1000], flat[1000:2000])

@@ -281,11 +281,14 @@ def test_serving_imports_nothing_of_jax():
     assert res.stdout.strip().splitlines()[-1] == "ok"
 
 
-def _engine_tokens_match(arch, lens, max_len):
-    """fp32 reduced `arch`, greedy: the same params (the JAX init, cast to
-    fp32 and carried over) and prompts of lengths `lens` (a prefill wave,
-    then refills spliced into the batched cache) give the same tokens on
-    the JAX engine and the port's."""
+def _engine_tokens_match(arch, lens, max_len, spy=None, **over):
+    """fp32 reduced `arch` (with `over`: config overrides, a "moe" entry
+    replacing fields of the MoE part), greedy: the same params (the JAX
+    init, cast to fp32 and carried over) and prompts of lengths `lens` (a
+    prefill wave, then refills spliced into the batched cache) give the
+    same tokens on the JAX engine and the port's.  `spy(model)` may wrap
+    the port's model before it serves."""
+    import dataclasses
     import jax
     import jax.numpy as jnp
     import repro.core as ref_core
@@ -299,9 +302,16 @@ def _engine_tokens_match(arch, lens, max_len):
     from repro_torch.configs.base import reduced
     from repro_torch.models.model import build_model
 
-    jm = ref_build_model(ref_reduced(ref_get_config(arch), dtype="float32"))
-    tm = build_model(reduced(get_config(arch), dtype="float32",
-                             decode_kernel=False))
+    moe_over = over.pop("moe", {})
+    rcfg = ref_reduced(ref_get_config(arch), dtype="float32", **over)
+    pcfg = reduced(get_config(arch), dtype="float32", decode_kernel=False,
+                   **over)
+    if moe_over:
+        rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(
+            rcfg.moe, **moe_over))
+        pcfg = dataclasses.replace(pcfg, moe=dataclasses.replace(
+            pcfg.moe, **moe_over))
+    jm, tm = ref_build_model(rcfg), build_model(pcfg)
     jp = jax.tree.map(lambda x: x.astype(jnp.float32),
                       jm.init(jax.random.key(0)))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
@@ -319,7 +329,8 @@ def _engine_tokens_match(arch, lens, max_len):
                 return [r.result(timeout=5) for r in reqs], eng.stats()
 
     want, _ = serve(ref_core.PilotSession, RefEngine, jm, jp)
-    got, st = serve(PilotSession, ServingEngine, tm, tp, device="cpu")
+    got, st = serve(PilotSession, ServingEngine,
+                    tm if spy is None else spy(tm), tp, device="cpu")
     assert got == want
     assert st["tokens_served"] == len(lens) * 6 and st["refills"] >= 3
 
@@ -334,3 +345,73 @@ def test_hymba_engine_tokens_equal_the_jax_engine_on_carried_weights():
     the spliced rows carry rolled sliding-window caches beside the global
     layer's and the SSM state (see _engine_tokens_match)."""
     _engine_tokens_match("hymba_1_5b", (36, 36, 40, 34, 38), max_len=64)
+
+
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_mixtral_engine_tokens_equal_the_jax_engine_on_carried_weights(cf):
+    """Reduced Mixtral (MoE) with a rolling window of 8, as
+    tests/test_serving.py serves it, at capacity factors 1.25 (one slot
+    per expert when a decode step regroups the two rows) and 8.0: prompts
+    past the window and decode past it (see _engine_tokens_match)."""
+    _engine_tokens_match("mixtral_8x22b", (10, 10, 13, 9, 12), max_len=32,
+                         sliding_window=8, moe={"capacity_factor": cf})
+
+
+def test_vision_engine_tokens_equal_the_jax_engine_on_carried_weights():
+    """Reduced InternVL2: the engine feeds zero patch embeddings and offsets
+    every decode position by the 4 vision tokens, as the JAX engine does;
+    the first decode of a row is at position vision + prompt length."""
+    import dataclasses
+    firsts = []
+
+    def spy(model):
+        inner = model.decode
+
+        def decode(params, cache, tokens, positions):
+            firsts.append(positions.tolist())
+            return inner(params, cache, tokens, positions)
+        return dataclasses.replace(model, decode=decode)
+
+    lens = (6, 6, 9, 7, 6)
+    _engine_tokens_match("internvl2_2b", lens, max_len=32, spy=spy)
+    # the wave of two 6-token prompts decodes first at 4 + 6
+    assert firsts[0] == [4 + 6, 4 + 6], firsts[0]
+
+
+def test_port_modules_and_chip_smoke_import_nothing_of_jax():
+    """Every module of src/repro_torch imports (in a fresh interpreter)
+    without pulling in jax or the JAX package, and chip_smoke.py names
+    neither in any import; the CLI serves the MoE and vision configs."""
+    import ast
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        from repro_torch.launch.serve import main
+        for arch in ("mixtral_8x22b", "internvl2_2b"):
+            st = main(["--arch", arch, "--preset", "smoke", "--requests",
+                       "2", "--batch", "2", "--prompt-len", "4", "--gen",
+                       "3", "--max-len", "16", "--device", "cpu"])
+            assert st["tokens_served"] == 6, st
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))
+        assert not bad, bad
+        print(len(names))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip().splitlines()[-1]) > 40
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
