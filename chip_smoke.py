@@ -23,7 +23,19 @@ kernels' launch counts set to 0 just before and read just after:
   the same way, 16 requests of 512-2048 prompt tokens at batch 8 (kernels
   flash_attention and selective_scan in each prefill, decode_attention in
   each decode step), after a model-level check of the kernel path against
-  the plain path and an fp32 run on prompts longer than the window.
+  the plain path and an fp32 run on prompts longer than the window;
+- serving InternVL2-2B (vision) at full size and Mixtral-8x22B (MoE) at
+  its published widths, 8 of its 56 layers, the same way;
+- serving Whisper-base (enc-dec) at full size: flash_attention non-causal
+  in the encoder (1500 frames) and in cross attention (the prompt, then
+  each decode token, against the 1500 frames), causal in the decoder's
+  prefill, decode_attention at one query head per kv head in each decode
+  step, after a model-level check on frames from a seed;
+- serving DeepSeek-V3 (MLA + MoE) at its published widths, 5 of its 61
+  layers, last: its path runs none of the port's kernels (MLA and the
+  experts are PyTorch products, as the JAX package runs them in jnp); its
+  model check holds the bf16 logits to an fp32 run and the absorbed decode
+  to the expanded prefill.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without CUDA or outside a checkout of the
@@ -35,6 +47,7 @@ Output: progress lines, then the card's name and power limit, a
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -90,6 +103,14 @@ VLM_MAX_LEN, VLM_PROMPT_LENS = 1024, (128, 256, 384)
 MIXTRAL_CHECK_LAYERS, MIXTRAL_LAYERS = 2, 8
 MIXTRAL_CHECK_LEN, MIXTRAL_MAX_LEN = 4608, 8192
 MIXTRAL_PROMPT_LENS = (1024, 2048, 4608)
+# the Whisper-base phases, at full size: 16 requests of 4/16/64 prompt
+# tokens (a few task tokens) into its 448-token text context
+WHISPER_MAX_LEN, WHISPER_PROMPT_LENS = 448, (4, 16, 64)
+# the DeepSeek-V3 phases, at its published widths: the model check at its
+# 3 leading (dense) layers, serving at 5 of its 61 layers (3 dense + 2
+# MoE), 16 requests of 256/512/1024 tokens into 2048 slots
+DEEPSEEK_CHECK_LAYERS, DEEPSEEK_LAYERS = 3, 5
+DEEPSEEK_MAX_LEN, DEEPSEEK_PROMPT_LENS = 2048, (256, 512, 1024)
 
 
 def log(*args) -> None:
@@ -462,6 +483,17 @@ def model_batch(torch, cfg, tokens) -> dict:
     return batch
 
 
+def spec_bytes(cfg):
+    """(parameters, bytes) of a config's parameter tree, counted from its
+    ParamSpecs (the MTP module included; ``cfg.num_params`` counts the
+    dense layers of an MoE config at the expert width)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import model_specs
+    specs = tree_leaves(model_specs(cfg))
+    n = [math.prod(sp.shape) for sp in specs]
+    return sum(n), sum(k * sp.dtype.itemsize for k, sp in zip(n, specs))
+
+
 def kernel_kind(name: str) -> str:
     """The kind of a traced kernel, by name: the attention and scan
     kernels, GEMMs (cuBLAS/cuBLASLt names), everything else."""
@@ -722,17 +754,19 @@ def sdpa_prefill(torch, q, k, v, causal, window):
 
 
 def check_flash(torch, op, name, b, s, nq, nkv, h, dtype, window,
-                causal=True, timed=True) -> dict:
+                causal=True, timed=True, skv=None) -> dict:
     """flash_attention kernel vs its plain version on the same
     card-resident inputs (bf16 runs on the tensor-core kernel, fp32 on the
-    CUDA-core one).  Tolerances: fp32 atol/rtol 2e-5 (as
-    tests/test_kernels.py); bf16 atol/rtol 2e-2 against the fp32 plain
-    result cast to bf16.  With `timed`, times: kernel (CUDA-graph replay
-    and eager), plain version and SDPA, each over enough input copies to
-    exceed L2."""
+    CUDA-core one): s query rows against `skv` kv rows (default s).
+    Tolerances: fp32 atol/rtol 2e-5 (as tests/test_kernels.py); bf16
+    atol/rtol 2e-2 against the fp32 plain result cast to bf16.  With
+    `timed`, times: kernel (CUDA-graph replay and eager), plain version
+    and SDPA, each over enough input copies to exceed L2."""
+    skv = s if skv is None else skv
     g = torch.Generator(device="cuda").manual_seed(5)
     args = tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
-                 for shape in ((b, s, nq, h), (b, s, nkv, h), (b, s, nkv, h)))
+                 for shape in ((b, s, nq, h), (b, skv, nkv, h),
+                               (b, skv, nkv, h)))
     got = op(*args, causal=causal, window=window, impl="cuda")
     torch.cuda.synchronize()
     want = op(*(t.float() for t in args), causal=causal, window=window,
@@ -744,10 +778,11 @@ def check_flash(torch, op, name, b, s, nq, nkv, h, dtype, window,
         f"flash_attention {name}: max |err| {float(err.max())}")
     route = "tensor cores" if dtype == torch.bfloat16 else "cuda cores"
     if not timed:
-        log(f"flash_attention check {name} B={b} S={s} {nq}/{nkv} H={h} "
-            f"{str(dtype).split('.')[-1]} window={window} causal={causal} "
-            f"({route}): max_abs_err={float(err.max()):.3e}")
-        return {"shape": name, "b": b, "s": s, "nq": nq, "nkv": nkv, "h": h,
+        log(f"flash_attention check {name} B={b} S={s} Skv={skv} {nq}/{nkv} "
+            f"H={h} {str(dtype).split('.')[-1]} window={window} "
+            f"causal={causal} ({route}): max_abs_err={float(err.max()):.3e}")
+        return {"shape": name, "b": b, "s": s, "skv": skv, "nq": nq,
+                "nkv": nkv, "h": h,
                 "window": window, "causal": causal, "route": route,
                 "dtype": str(dtype).split(".")[-1],
                 "max_abs_err": float(err.max())}
@@ -768,17 +803,19 @@ def check_flash(torch, op, name, b, s, nq, nkv, h, dtype, window,
         *a, impl="ref", **kw)), reps=copies)
     library = event_ms(torch, rotating(sets, lambda *a: sdpa_prefill(
         torch, *a, causal, window)), reps=copies)
-    b_s, b_by, pairs = flash_bound(b, s, s, nq, nkv, h, esize, causal,
+    b_s, b_by, pairs = flash_bound(b, s, skv, nq, nkv, h, esize, causal,
                                    window)
-    row = {"shape": name, "b": b, "s": s, "nq": nq, "nkv": nkv, "h": h,
+    row = {"shape": name, "b": b, "s": s, "skv": skv, "nq": nq, "nkv": nkv,
+           "h": h,
            "window": window, "causal": causal, "route": route,
            "dtype": str(dtype).split(".")[-1], "kernel_ms": ms,
            "kernel_eager_ms": eager, "plain_ms": plain,
            "library_ms": library, "bound_us": b_s * 1e6, "bound_by": b_by,
            "pairs": pairs, "max_abs_err": float(err.max()),
            "library_max_abs_err": lib_err}
-    log(f"flash_attention check {name} B={b} S={s} {nq}/{nkv} H={h} "
-        f"{row['dtype']} window={window} ({route}): kernel_ms={ms:.6f} "
+    log(f"flash_attention check {name} B={b} S={s} Skv={skv} {nq}/{nkv} "
+        f"H={h} {row['dtype']} window={window} causal={causal} ({route}): "
+        f"kernel_ms={ms:.6f} "
         f"kernel_eager_ms={eager:.6f} plain_ms={plain:.6f} "
         f"sdpa_ms={library:.6f} bound_us={b_s * 1e6:.4f} ({b_by}) "
         f"max_abs_err={row['max_abs_err']:.3e} sdpa_err={lib_err:.3e}")
@@ -1001,11 +1038,15 @@ def hymba_serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
 
 def family_serving_phase(torch, core, name, cfg, params, kernels: dict,
                          lens, max_len, *, memory_gb=8, after=None,
-                         width="full width") -> dict:
-    """A GQA family's serving path (InternVL2, Mixtral): 16 greedy requests
-    whose prompt lengths are drawn from `lens` (np.random.default_rng(0)).
+                         width="full width", expect=None) -> dict:
+    """A family's serving path (InternVL2, Mixtral, Whisper, DeepSeek-V3):
+    16 greedy requests whose prompt lengths are drawn from `lens`
+    (np.random.default_rng(0)).  `expect(stats)` gives the launches the
+    path must count, by kernel; by default (a GQA decoder)
     flash_attention runs on the tensor cores once per layer in each
-    prefill, decode_attention once per layer in each decode step."""
+    prefill, decode_attention once per layer in each decode step.  Every
+    decode_attention launch is on the tensor-core route and no fp32 flash
+    launch is made (the models run bf16)."""
     rng = np.random.default_rng(0)
     lens = rng.choice(lens, size=SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
@@ -1014,10 +1055,11 @@ def family_serving_phase(torch, core, name, cfg, params, kernels: dict,
                 memory_gb=memory_gb, after=after)
     st, launches = res["stats"], res["launches"]
     prefills = st["waves"] + st["refills"]
-    assert launches["flash_attention"] == cfg.num_layers * prefills, (
-        launches, st)
-    assert launches["decode_attention"] == (
-        cfg.num_layers * st["decode_steps"]), (launches, st)
+    want = (expect(st) if expect is not None else {
+        "flash_attention": cfg.num_layers * prefills,
+        "decode_attention": cfg.num_layers * st["decode_steps"]})
+    for kernel, n in want.items():
+        assert launches[kernel] == n, (kernel, n, launches, st)
     assert launches["decode_attention_tc"] == launches["decode_attention"], (
         launches)
     assert launches["flash_attention_fp32"] == 0, launches   # bf16 model
@@ -1109,15 +1151,382 @@ def mixtral_step(torch, cfg, params) -> dict:
     return row
 
 
-def host_memory() -> dict:
+def host_memory(when: str) -> dict:
     """The machine's `free -g` and this process's peak resident set."""
     import resource
     free = subprocess.run(["free", "-g"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
     rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
-    log("free -g on the card's machine, the Mixtral shards in host memory:\n"
-        + free + f"\npeak resident set of this process {rss_gb:.3f} GB")
+    log(f"free -g on the card's machine, {when}:\n" + free
+        + f"\npeak resident set of this process {rss_gb:.3f} GB")
     return {"free_g": free, "max_rss_gb": rss_gb}
+
+
+def fan_in_params(torch, cfg, seed: int):
+    """Params for a model check, drawn on the card from `seed` at a
+    1/sqrt(fan-in) scale, the fan-in of a "scaled" leaf being its input
+    width: the axis after a leading layer (and expert) axis, times the
+    head width where it starts with the heads (an output projection).
+    The JAX package's init, which the port copies, takes a stacked leaf's
+    first axis, its layer count, as the fan-in: the residual stream then
+    grows until the bf16 path lies about half the logits' scale from fp32
+    (the Llama check's own numbers, PERF.md), and a bound taken from that
+    gap holds little.  The serving phases keep the engine's own draw."""
+    from repro_torch.models.common import _init_leaf, tree_map
+    from repro_torch.models.transformer import model_specs
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+
+    def leaf(sp):
+        if sp.init != "scaled":
+            return _init_leaf(sp, g, dev)
+        lead = 0
+        while sp.logical[lead] in ("layers", "expert"):
+            lead += 1
+        fan = sp.shape[lead] * (sp.shape[lead + 1]
+                                if sp.logical[lead] == "heads" else 1)
+        x = torch.randn(sp.shape, generator=g, device=dev)
+        return x.mul_(fan ** -0.5).to(sp.dtype)
+    return tree_map(leaf, model_specs(cfg))
+
+
+# Two bf16 computations of one function whose roundings are independent
+# lie about sqrt(2) times as far from each other as each lies from fp32.
+# The Llama rule (kernel vs plain <= plain vs fp32) holds on the engine's
+# init, where both paths share the residual stream's large roundings; on
+# `fan_in_params` the attention's own roundings weigh as much, and the
+# new model checks bound the gap between two bf16 paths by this factor
+# times the bf16 path's gap from fp32 (PERF.md).
+INDEPENDENT_ROUNDING = math.sqrt(2)
+
+
+@contextlib.contextmanager
+def fp32_head():
+    """While the block runs, the models' logits are taken in fp32 from
+    their final hidden state (the head's product in fp32): the head's own
+    bf16 rounding, the same step in every bf16 path, would quantize a
+    comparison of two bf16 paths to an ulp of the logits (0.03 at 4)."""
+    import repro_torch.models.transformer as tfm_models
+    real = tfm_models.lm_logits
+    tfm_models.lm_logits = lambda params, x, cfg: real(params, x.float(),
+                                                       cfg)
+    try:
+        yield
+    finally:
+        tfm_models.lm_logits = real
+
+
+def whisper_inputs(torch, cfg, b: int, s: int, seed: int) -> dict:
+    """b prompts of s tokens and frames of 0.1 * normal (as
+    tests/test_models.py feeds them), from a seed, on the card."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    frames = 0.1 * rng.standard_normal((b, cfg.encoder_seq_len,
+                                        cfg.d_model))
+    return {"tokens": torch.from_numpy(tokens).cuda(),
+            "frames": torch.from_numpy(frames.astype(np.float32)).cuda()}
+
+
+def whisper_launches(cfg, prefills: int, steps: int) -> dict:
+    """The kernel launches of Whisper's path: flash_attention in each
+    prefill once per encoder layer and twice per decoder layer (causal
+    self attention, cross attention), and once per decoder layer in each
+    decode step (cross attention, one query row); decode_attention once
+    per decoder layer in each decode step."""
+    enc, dec = cfg.encoder_layers, cfg.num_layers
+    return {"flash_attention": (enc + 2 * dec) * prefills + dec * steps,
+            "decode_attention": dec * steps}
+
+
+def whisper_model_phase(torch, cfg, params, kernels: dict) -> dict:
+    """Kernel vs plain at model level, full size: prefill 8 prompts of 16
+    tokens after 1500 frames of 0.1 * normal, then 8 decode steps, three
+    ways: the kernel path; the plain path (flash_attention_op and
+    decode_attention_op patched to their plain versions, fp32 inside, so
+    that only the kernels differ); the fp32 model.  All are fed the fp32
+    model's greedy tokens, on `fan_in_params`, the logits taken in fp32
+    from each path's hidden state (`fp32_head`).  Tolerances, prefill
+    logits included: kernel vs plain <= INDEPENDENT_ROUNDING x (plain vs
+    fp32), and the kernel path no further from fp32 than that bound.  The
+    serving engine feeds zero frames, under which every encoder layer
+    maps 0 to 0 and cross attention adds nothing, so this check is the
+    one that holds the encoder and cross attention: the frames must move
+    the logits by more than the bf16 path's own error.  Then one decode
+    step of the kernel path under the profiler."""
+    import functools
+
+    import repro_torch.models.attention as attn_models
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+
+    b, s, steps = SERVE_BATCH, 16, 8
+    kern = plain = build_model(cfg)
+    m32 = build_model(dataclasses.replace(cfg, decode_kernel=False,
+                                          dtype="float32"))
+    batch = whisper_inputs(torch, cfg, b, s, seed=1)
+    pos0 = torch.full((b,), s, dtype=torch.int32, device="cuda")
+
+    def run(model, p, feed=None):
+        logits, cache = model.prefill(p, batch, WHISPER_MAX_LEN)
+        outs, toks, pos = [logits.float()], [], pos0
+        for t in range(steps):
+            tok = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[t])
+            toks.append(tok)
+            logits, cache = model.decode(p, cache, tok[:, None], pos)
+            outs.append(logits.float())
+            pos = pos + 1
+        return outs, toks, cache
+
+    real = (attn_models.flash_attention_op, attn_models.decode_attention_op)
+    attn_models.flash_attention_op = functools.partial(real[0], impl="ref")
+    attn_models.decode_attention_op = functools.partial(real[1], impl="ref")
+    try:
+        with fp32_head():
+            zero_counts(kernels)
+            p32 = tree_map(lambda t: t.float(), params)
+            want32, feed, _ = run(m32, p32)
+            del p32
+            got_p, _, _ = run(plain, params, feed)
+            plain_launches = read_counts(kernels)
+    finally:
+        attn_models.flash_attention_op, attn_models.decode_attention_op = real
+    assert not any(plain_launches.values()), (
+        f"the plain path launched kernels: {plain_launches}")
+    zero_counts(kernels)
+    with fp32_head():
+        got_k, _, cache = run(kern, params, feed)
+    launches = read_counts(kernels)
+    for kernel, n in whisper_launches(cfg, 1, steps).items():
+        assert launches[kernel] == n, (kernel, n, launches)
+    assert launches["decode_attention_tc"] == launches["decode_attention"]
+    assert launches["flash_attention_fp32"] == 0, launches
+    d = max(float((a - c).abs().max()) for a, c in zip(got_k, got_p))
+    d_plain = max(float((a - c).abs().max()) for a, c in zip(got_p, want32))
+    d_kernel = max(float((a - c).abs().max()) for a, c in zip(got_k, want32))
+    agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum())
+                for a, c in zip(got_k, got_p))
+    scale = max(float(a.abs().max()) for a in got_p)
+    zero = dict(batch, frames=torch.zeros_like(batch["frames"]))
+    with fp32_head():
+        moved = float((kern.prefill(params, zero, WHISPER_MAX_LEN)[0]
+                       - got_k[0]).abs().max())
+    log(f"model check whisper-base full size, {b} prompts x {s} after "
+        f"{cfg.encoder_seq_len} frames of 0.1*normal, {steps} decode steps: "
+        f"max|dlogits| kernel vs plain = {d:.6f} (bound: "
+        f"{INDEPENDENT_ROUNDING:.4f} x plain vs fp32 = "
+        f"{INDEPENDENT_ROUNDING * d_plain:.6f}; plain vs fp32 = "
+        f"{d_plain:.6f}); kernel vs fp32 = {d_kernel:.6f}; max|logits| "
+        f"{scale:.4f}; greedy agree {agree}/{(steps + 1) * b}; zero frames "
+        f"move the prefill logits by {moved:.6f}; kernel-path launches "
+        f"{launches}, plain-path launches {plain_launches}")
+    assert all(bool(torch.isfinite(a).all()) for a in got_k + got_p)
+    bound = INDEPENDENT_ROUNDING * d_plain
+    assert d <= bound and d_kernel <= bound, (
+        f"the kernel path differs from the plain path by {d} and from fp32 "
+        f"by {d_kernel}, against a bound of {bound} (plain vs fp32 "
+        f"{d_plain})")
+    assert moved > d_plain, (f"the frames move the logits by {moved}, no "
+                             f"more than bf16 rounding ({d_plain})")
+    # one decode step under the profiler: where its device time goes
+    _, wall, per = device_trace(torch, lambda: kern.decode(
+        params, cache, feed[-1][:, None], pos0 + steps))
+    parts = breakdown(per)
+    assert parts["decode_attention"] > 0 and parts["flash_attention"] > 0, (
+        sorted(per))
+    busy = sum(parts.values())
+    log(f"trace of one whisper-base decode step (kernel path, B={b}, "
+        f"{WHISPER_MAX_LEN} slots, {cfg.encoder_seq_len} frames, profiler "
+        f"on): wall_us={wall * 1e6:.3f} device_busy_us={busy:.3f} "
+        f"device_busy_share={busy / (wall * 1e6):.6f} "
+        + " ".join(f"{k}_us={v:.3f}" for k, v in parts.items())
+        + f" kernels={len(per)}")
+    return {"max_abs_dlogits": d, "plain_vs_fp32": d_plain,
+            "kernel_vs_fp32": d_kernel, "greedy_agree": agree,
+            "frames_move_logits": moved, "kernel_launches": launches,
+            "step_us": parts, "step_wall_us": wall * 1e6}
+
+
+def deepseek_model_phase(torch, cfg, params) -> dict:
+    """DeepSeek-V3's model check, at its 3 leading (dense) layers: no
+    kernel of the port is on this path, so it holds (1) the bf16 logits
+    against the fp32 model's (params cast) and (2) the absorbed decode
+    against the expanded prefill: the logits of decode at position t
+    against those of a prefill over the t+1 tokens, equal in exact
+    arithmetic.  In bf16 their gap must be no larger than
+    INDEPENDENT_ROUNDING x the bf16 model's gap from fp32 in the same run
+    (over the prefill, the decode steps and the prefills over t+1 tokens:
+    the two paths round differently by design); in fp32 no larger than a
+    hundredth of that gap.  8 prompts of 512 tokens, 4 decode
+    steps, all fed the fp32 model's greedy tokens, on `fan_in_params`,
+    the logits taken in fp32 from each run's hidden state (`fp32_head`)."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import build_model
+
+    b, s, steps = SERVE_BATCH, 512, 4
+    m16 = build_model(cfg)
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    prompts = hymba_inputs(torch, cfg, b, s, seed=5)
+
+    def run(model, p, feed=None):
+        logits, cache = model.prefill(p, {"tokens": prompts},
+                                      DEEPSEEK_MAX_LEN)
+        outs, expanded, toks = [logits.float()], [], []
+        seq, pos = prompts, torch.full((b,), s, dtype=torch.int32,
+                                       device="cuda")
+        for t in range(steps):
+            tok = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[t])
+            toks.append(tok)
+            logits, cache = model.decode(p, cache, tok[:, None], pos)
+            outs.append(logits.float())
+            seq = torch.cat([seq, tok[:, None]], dim=1)
+            expanded.append(model.prefill(p, {"tokens": seq},
+                                          DEEPSEEK_MAX_LEN)[0].float())
+            pos = pos + 1
+        return outs, expanded, toks
+
+    with fp32_head():
+        p32 = tree_map(lambda t: t.float(), params)
+        out32, exp32, feed = run(m32, p32)
+        del p32
+        torch.cuda.empty_cache()
+        out16, exp16, _ = run(m16, params, feed)
+    gap = lambda xs, ys: max(float((a - c).abs().max()) for a, c in
+                             zip(xs, ys))
+    d_bf16 = max(gap(out16, out32), gap(exp16, exp32))
+    d_abs16, d_abs32 = gap(out16[1:], exp16), gap(out32[1:], exp32)
+    scale = max(float(a.abs().max()) for a in out32)
+    agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum())
+                for a, c in zip(out16, out32))
+    log(f"model check deepseek-v3 ({cfg.num_layers} of 61 layers, all "
+        f"dense MLA, published widths), {b} prompts x {s}, {steps} decode "
+        f"steps: max|dlogits| bf16 vs fp32 = {d_bf16:.6f}; absorbed decode "
+        f"vs expanded prefill: bf16 {d_abs16:.6f} (bound: "
+        f"{INDEPENDENT_ROUNDING:.4f} x bf16 vs fp32 = "
+        f"{INDEPENDENT_ROUNDING * d_bf16:.6f}), fp32 {d_abs32:.6f} (bound "
+        f"{d_bf16 / 100:.6f}); max|logits| {scale:.4f}; greedy agree bf16 "
+        f"vs fp32 {agree}/{(steps + 1) * b}")
+    assert all(bool(torch.isfinite(a).all()) for a in out16 + exp16)
+    assert d_abs16 <= INDEPENDENT_ROUNDING * d_bf16, (
+        f"the absorbed decode differs from the expanded prefill by {d_abs16} "
+        f"in bf16, against bf16's own error {d_bf16} against fp32")
+    assert d_abs32 <= d_bf16 / 100, (
+        f"the absorbed decode differs from the expanded prefill by {d_abs32} "
+        f"in fp32")
+    return {"bf16_vs_fp32": d_bf16, "absorbed_vs_expanded_bf16": d_abs16,
+            "absorbed_vs_expanded_fp32": d_abs32, "greedy_agree": agree,
+            "max_abs_logits": scale}
+
+
+def bmm_kernels(e) -> list:
+    """(name, us) of the kernels launched under the aten::bmm ops beneath
+    a profiled CPU op."""
+    if e.name == "aten::bmm":
+        return op_kernels(e)
+    return [k for ch in e.cpu_children for k in bmm_kernels(ch)]
+
+
+def deepseek_step(torch, cfg, params) -> dict:
+    """Where a DeepSeek-V3 decode step's time goes, on the serving
+    runtime's params (the one device copy): 8 prompts of 1024 prefilled
+    into the 2048-slot latent cache, 5 synchronised decode steps timed on
+    the host clock, then one step under the profiler (CPU and CUDA
+    activity) with mla_decode, the dense FFN and moe_ffn each inside a
+    record_function range: the MLA products, the dense FFNs, the expert
+    products (the kernels of aten::bmm under moe_ffn), the rest of the MoE
+    (router, dispatch, shared expert) and everything else, beside the
+    weight-read floor (every weight but the embedding table and the MTP
+    module, which decode never reads, read once: the decode-time
+    regrouping puts the 8 rows' 64 (token, expert) choices in one group
+    with one slot per expert, and the batched products run all 256
+    experts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import repro_torch.models.attention as attn_models
+    import repro_torch.models.moe as moe_models
+    import repro_torch.models.transformer as tfm_models
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    prompts = hymba_inputs(torch, cfg, SERVE_BATCH, 1024, seed=6)
+    _, cache = model.prefill(params, {"tokens": prompts}, DEEPSEEK_MAX_LEN)
+    tok = prompts[:, -1:]
+    pos = torch.full((SERVE_BATCH,), 1024, dtype=torch.int32, device="cuda")
+    ms = []
+    for i in range(6):                      # the first one warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode(params, cache, tok, pos + i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ranges = {"mla": (attn_models, "mla_decode"),
+              "dense_ffn": (tfm_models, "dense_ffn"),
+              "moe": (moe_models, "moe_ffn")}
+    real = {label: getattr(mod, fn) for label, (mod, fn) in ranges.items()}
+
+    def ranged(label):
+        def call(*a, **kw):
+            with record_function(label):
+                return real[label](*a, **kw)
+        return call
+
+    for label, (mod, fn) in ranges.items():
+        setattr(mod, fn, ranged(label))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.decode(params, cache, tok, pos + 6)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for label, (mod, fn) in ranges.items():
+            setattr(mod, fn, real[label])
+    per = {}
+    under = {label: 0.0 for label in ranges}
+    experts = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name not in ranges:        # not a range's own device span
+                per[e.name] = per.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us()
+        elif e.name in ranges:
+            under[e.name] += sum(us for _, us in op_kernels(e))
+            if e.name == "moe":
+                experts += sum(us for _, us in bmm_kernels(e))
+    busy = sum(per.values())
+    parts = {"mla_products": under["mla"], "dense_ffn": under["dense_ffn"],
+             "expert_products": experts,
+             "moe_rest": under["moe"] - experts,
+             "other": busy - sum(under.values())}
+    assert experts > 0 and under["mla"] > 0 and under["dense_ffn"] > 0, (
+        under, sorted(per))
+    moe_p = params["layers"]["moe"]
+    expert_bytes = sum(int(moe_p[k].nbytes)
+                       for k in ("w_gate", "w_up", "w_down"))
+    weight_bytes = sum(int(t.nbytes) for t in tree_leaves(params)) - int(
+        params["embed"].nbytes) - sum(int(t.nbytes) for t in
+                                      tree_leaves(params["mtp"]))
+    floor_ms = weight_bytes / PEAK_BYTES_PER_S * 1e3
+    row = {"wall_us": wall * 1e6, "busy_us": busy,
+           "busy_share": busy / (wall * 1e6), "device_us": parts,
+           "step_ms": ms[1:], "expert_bytes": expert_bytes,
+           "weight_bytes": weight_bytes, "weight_floor_ms": floor_ms}
+    log(f"trace of one deepseek-v3 decode step ({cfg.num_layers} layers, "
+        f"B={SERVE_BATCH}, {DEEPSEEK_MAX_LEN} slots, position 1030, profiler "
+        f"on): wall_us={wall * 1e6:.3f} device_busy_us={busy:.3f} "
+        f"device_busy_share={busy / (wall * 1e6):.6f} "
+        + " ".join(f"{k}_us={v:.3f}" for k, v in parts.items())
+        + f"; device busy us over the fastest synchronised step "
+        f"{busy / (min(ms[1:]) * 1e3):.6f}; synchronised steps ms "
+        f"{[round(x, 3) for x in ms[1:]]}; weight-read floor "
+        f"{floor_ms:.4f} ms ({weight_bytes} bytes of weights, "
+        f"{expert_bytes} of them the experts', at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s)")
+    return row
 
 
 def main() -> int:
@@ -1260,7 +1669,10 @@ def main() -> int:
         # and InternVL2's 1024 slots full
         ("mixtral decode, window", 8, 4096, 48, 8, 128, bf16, 4096,
          {"first": 4608}),
-        ("internvl2 decode", 8, 1024, 16, 8, 128, bf16, 0, {"fill": 1.0})]
+        ("internvl2 decode", 8, 1024, 16, 8, 128, bf16, 0, {"fill": 1.0}),
+        # Whisper's decoder self-attention: one query head per kv head,
+        # bf16, its 448-token text context full
+        ("whisper decode, G=1", 8, 448, 8, 8, 64, bf16, 0, {"fill": 1.0})]
     attn_rows = [check_attention(torch, decode_attention_op,
                                  decode_attention_ref, name, b, sc, nq, nkv,
                                  h, dt, window=w, **kind)
@@ -1281,6 +1693,14 @@ def main() -> int:
         ("internvl2 wave", 8, 640, 16, 8, 128, bf16, 0)]
     flash_rows = [check_flash(torch, flash_attention_op, *shape)
                   for shape in flash_shapes]
+    # Whisper's non-causal shapes (8/8 heads of 64, 1500 frames): the
+    # encoder, and cross attention of a 64-token prompt and of one decode
+    # token against the frames
+    flash_rows += [check_flash(torch, flash_attention_op, name, 8, sq, 8, 8,
+                               64, bf16, 0, causal=False, skv=1500)
+                   for name, sq in (("whisper encoder", 1500),
+                                    ("whisper cross prefill", 64),
+                                    ("whisper cross decode", 1))]
     # the tensor-core kernel's other widths and edges, checked untimed
     flash_rows += [check_flash(torch, flash_attention_op, *shape, timed=False)
                    for shape in (
@@ -1390,7 +1810,7 @@ def main() -> int:
         log(f"device memory allocated after serving {live / 1e9:.3f} GB "
             f"(weights about {weight_bytes / 1e9:.3f} GB)")
         assert live < 1.1 * weight_bytes, live
-        steps["host"] = host_memory()
+        steps["host"] = host_memory("the Mixtral shards in host memory")
         steps["step"] = mixtral_step(torch, mcfg, params)
         return steps
 
@@ -1405,8 +1825,74 @@ def main() -> int:
         f"{step['weight_floor_ms']:.4f} ms; synchronised step "
         f"{min(step['step_ms']):.4f} ms (min of {len(step['step_ms'])}); "
         f"serving {per_step:.4f} ms per step, refills included")
+    gc.collect()             # the runtime's 40.9 GB, on the card and host
+    torch.cuda.empty_cache()
 
-    # -- 10. the kernels line ----------------------------------------------
+    # -- 10. the serving path: Whisper-base at full size --------------------
+    wcfg = get_config("whisper_base")
+    t0 = time.perf_counter()
+    wparams = fan_in_params(torch, wcfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"params: {wcfg.name} {spec_bytes(wcfg)[0]} parameters drawn on the "
+        f"card at a 1/sqrt(fan-in) scale in {time.perf_counter() - t0:.3f} s")
+    whisper_row = whisper_model_phase(torch, wcfg, wparams, gqa_kernels)
+    del wparams
+    wserve = family_serving_phase(
+        torch, core, "whisper-base", wcfg, None, gqa_kernels,
+        WHISPER_PROMPT_LENS, WHISPER_MAX_LEN, memory_gb=4,
+        expect=lambda st: whisper_launches(
+            wcfg, st["waves"] + st["refills"], st["decode_steps"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11. the serving path: DeepSeek-V3 at published widths, last -------
+    full = get_config("deepseek_v3_671b")
+    ccfg = dataclasses.replace(full, num_layers=DEEPSEEK_CHECK_LAYERS)
+    assert ccfg.moe.first_k_dense == DEEPSEEK_CHECK_LAYERS   # all dense
+    t0 = time.perf_counter()
+    cparams = fan_in_params(torch, ccfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"params: {ccfg.name} at {ccfg.num_layers} of {full.num_layers} "
+        f"layers, {spec_bytes(ccfg)[0]} parameters drawn on the card at a "
+        f"1/sqrt(fan-in) scale in {time.perf_counter() - t0:.3f} s")
+    mla_row = deepseek_model_phase(torch, ccfg, cparams)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(full, num_layers=DEEPSEEK_LAYERS)
+    d_params, d_bytes = spec_bytes(dcfg)
+    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
+    d_host = host_memory("before the DeepSeek-V3 draw")
+    log(f"serving {dcfg.name} at {dcfg.num_layers} of {full.num_layers} "
+        f"layers: {d_params} parameters ({d_bytes / 1e9:.3f} GB; "
+        f"num_params() gives {dcfg.num_params()}), drawn on the card by "
+        f"the engine from its seed, one device copy")
+    dsteps = {"host_before": d_host}
+
+    def dafter(params):
+        live = torch.cuda.memory_allocated()
+        log(f"device memory allocated after serving {live / 1e9:.3f} GB "
+            f"(weights {d_bytes / 1e9:.3f} GB)")
+        assert live < 1.1 * d_bytes, live
+        dsteps["host"] = host_memory("the DeepSeek-V3 shards in host memory")
+        dsteps["step"] = deepseek_step(torch, dcfg, params)
+        return dsteps
+
+    # MLA and the experts are PyTorch products: no kernel of the port runs
+    dserve = family_serving_phase(
+        torch, core, "deepseek-v3", dcfg, None, gqa_kernels,
+        DEEPSEEK_PROMPT_LENS, DEEPSEEK_MAX_LEN, after=dafter,
+        width=f"published widths, {dcfg.num_layers} of {full.num_layers} "
+        f"layers,", expect=lambda st: {"flash_attention": 0,
+                                       "decode_attention": 0})
+    dstep = dsteps["step"]
+    per_step = dserve["wall_s"] / dserve["stats"]["decode_steps"] * 1e3
+    log(f"deepseek-v3 decode step against its weight-read floor: floor "
+        f"{dstep['weight_floor_ms']:.4f} ms; synchronised step "
+        f"{min(dstep['step_ms']):.4f} ms (min of {len(dstep['step_ms'])}); "
+        f"serving {per_step:.4f} ms per step, refills included")
+
+    # -- 12. the kernels line ----------------------------------------------
     head = rows[len(rows) - len(PAPER_SCENARIOS)]      # scenario i partition
     ahead = attn_rows[1]                                # the serving shape
     fhead, shead = flash_rows[0], scan_rows[0]          # the hymba refill
@@ -1418,7 +1904,9 @@ def main() -> int:
         path: res["launches"].get(name, 0) for path, res in (
             ("llama3_2_1b serving", lserve), ("hymba_1_5b serving", hserve),
             ("internvl2_2b serving", vserve),
-            ("mixtral_8x22b serving", mserve))}
+            ("mixtral_8x22b serving", mserve),
+            ("whisper_base serving", wserve),
+            ("deepseek_v3_671b serving", dserve))}
     log(card)
     log(json.dumps({"kernels": [{
         "name": "kmeans_assign", "route": "cuda", "source": SOURCE,
@@ -1439,11 +1927,19 @@ def main() -> int:
         "library_ms": ahead["library_ms"], "shapes": attn_rows,
         "model_check": model_row, "serving": served(lserve),
         "model_checks": {"internvl2_2b": vision_row,
-                         "mixtral_8x22b": moe_row},
+                         "mixtral_8x22b": moe_row,
+                         "whisper_base": whisper_row,
+                         # no kernel of the port on its path
+                         "deepseek_v3_671b": mla_row},
         "servings": {"internvl2_2b": served(vserve),
                      "mixtral_8x22b": served(mserve)
                      | {"peak_bytes": mserve["peak_bytes"]}
-                     | mserve["after"]}}, {
+                     | mserve["after"],
+                     "whisper_base": served(wserve)
+                     | {"peak_bytes": wserve["peak_bytes"]},
+                     "deepseek_v3_671b": served(dserve)
+                     | {"peak_bytes": dserve["peak_bytes"]}
+                     | dserve["after"]}}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": sum(by_path("flash_attention").values()),
@@ -1455,7 +1951,9 @@ def main() -> int:
         "bound_ms": fhead["bound_us"] / 1e3, "bound_by": fhead["bound_by"],
         "library_ms": fhead["library_ms"], "shapes": flash_rows,
         "model_check": hymba_row, "traces": hymba_steps,
-        "serving": served(hserve)}, {
+        "serving": served(hserve),
+        "model_checks": {"whisper_base": whisper_row},
+        "servings": {"whisper_base": served(wserve)}}, {
         "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES,
         "launches": hserve["launches"]["selective_scan"],
@@ -1464,7 +1962,7 @@ def main() -> int:
         "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_us"] / 1e3, "bound_by": shead["bound_by"],
         "library_ms": None, "shapes": scan_rows}]}))
-    # -- 11. the last line --------------------------------------------------
+    # -- 13. the last line --------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

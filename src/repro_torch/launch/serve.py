@@ -11,11 +11,13 @@ loop as a long-lived resident task, and — with ``--supervise`` and a
 ``--checkpoint-dir`` — a pilot killed mid-stream has its in-flight
 requests recovered from the durable tier.  It runs on the card unless
 ``--device cpu`` is given; ``--preset full`` serves the published config
-(with seeded random weights).  ``main()`` returns the engine's stats dict.
+(with seeded random weights), cut to ``--layers`` decoder layers where
+it asks for it.  ``main()`` returns the engine's stats dict.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -51,9 +53,14 @@ def main(argv=None):
                          "pilots mid-stream")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="decoder layers (default: the preset's); cuts a "
+                         "published config too deep for one card")
     args = ap.parse_args(argv)
 
     cfg = scaled_config(args.arch, args.preset)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size,

@@ -1,13 +1,16 @@
-"""Attention: GQA (full / sliding-window), prefill and decode.
+"""Attention: GQA (full / sliding-window), MLA (DeepSeek-V3), and the
+bidirectional encoder and cross attention of the enc-dec (Whisper) family;
+prefill and decode.
 
-The port of the GQA half of ``repro/models/attention.py``; MLA, encoder
-and cross attention come with the other model families.  Prefill
-attention goes through ``flash_attention_op``, which launches the
-hand-written CUDA kernel on a CUDA tensor and runs its plain version on a
-CPU tensor: fp32 scores, softmax and P.V, the output in the activation
-dtype.  (The JAX package computes prefill in jnp, with bf16 probabilities
-and a bf16 P.V product in bf16 models, and names its Pallas kernel as the
-drop-in for it.)
+The port of ``repro/models/attention.py``.  GQA prefill, encoder and
+cross attention go through ``flash_attention_op`` (causal for GQA
+prefill, non-causal for the encoder and for cross attention, whose
+queries, the prompt or one decode token, attend to all the encoder's
+frames), which launches the hand-written CUDA kernel on a CUDA tensor
+and runs its plain version on a CPU tensor: fp32 scores, softmax and
+P.V, the output in the activation dtype.  (The JAX package computes
+these in jnp, with bf16 probabilities and a bf16 P.V product in bf16
+models, and names its Pallas kernel as the drop-in for it.)
 
 Decode uses a unified cache layout: (B, Sc, nkv, hd) K/V plus a (B, Sc)
 int32 ``pos`` tensor holding the absolute position stored in each slot
@@ -17,6 +20,16 @@ path.  `gqa_decode` writes the new token's K/V/pos into the cache in
 place; with ``cfg.decode_kernel`` the attention itself goes through
 ``decode_attention_op``, which launches the hand-written CUDA kernel on a
 CUDA tensor and runs its plain version on a CPU tensor.
+
+MLA runs in plain PyTorch (cuBLAS products on the card), as the JAX
+package runs it in jnp outside any Pallas kernel: its prefill expands the
+latent to per-head K (qk_nope + qk_rope = 192 wide) and V (128 wide),
+which the flash kernel, one head width for q, k and v, does not take, so
+it attends in `_attend_chunked` (fp32 scores and softmax, probabilities
+cast to V's dtype before P.V, ``MLA_CHUNK`` query rows at a time).  Its
+decode caches the compressed latent (kv_lora_rank + rope_dim per token,
+slot pos % max_len, no window) and uses the absorbed-matmul trick, which
+is the point of MLA's serving efficiency.
 """
 from __future__ import annotations
 
@@ -27,9 +40,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.models.common import ParamSpec, apply_rope, linear
+from repro_torch.models.common import (ParamSpec, apply_rope, linear,
+                                       rms_norm)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# query rows per chunk of MLA's prefill attention.  The chunk does not
+# change the result; it bounds the fp32 scores a chunk holds: at
+# DeepSeek-V3's 128 heads, B=8 and 1024 keys, 256 rows are 1.07 GB (the
+# JAX package's 1024 would be 4.3 GB, twice over for the softmax).
+MLA_CHUNK = 256
 
 
 def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -123,3 +142,157 @@ def gqa_decode(params, x, cache, *, cfg: ModelConfig, positions,
                            v_cache)
         out = out.reshape(b, 1, nq, hd)
     return _out_proj(out, params["wo"]), cache
+
+
+def _attend_chunked(q, k, v, *, q_positions, kv_positions, causal: bool,
+                    window: int, chunk: int) -> torch.Tensor:
+    """q: (B,S,nkv,g,hd); k: (B,Skv,nkv,hd); v: (B,Skv,nkv,vd) ->
+    (B,S,nkv,g,vd).  Per query chunk: fp32 scores (the JAX package's
+    ``preferred_element_type``) scaled by hd**-0.5, the causal/window mask
+    from the positions, an fp32 softmax, the probabilities cast to v's
+    dtype before P.V."""
+    hd = q.shape[-1]
+    k32 = k.float()
+    outs = []
+    for a in range(0, q.shape[1], chunk):
+        qc = q[:, a:a + chunk].float()
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qc, k32).mul_(hd ** -0.5)
+        rel = q_positions[:, a:a + chunk, None] - kv_positions[:, None, :]
+        mask = torch.ones_like(rel, dtype=torch.bool)    # (B,c,Skv)
+        if causal:
+            mask &= rel >= 0
+        if window:
+            mask &= rel < window
+        scores.masked_fill_(~mask[:, None, None], NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        del scores
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", probs, v))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2/V3)
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, nq, m = cfg.d_model, cfg.num_heads, cfg.mla
+    qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("embed", "mla_rank"), "scaled"),
+        "q_norm": ParamSpec((m.q_lora_rank,), ("mla_rank",), "ones"),
+        "wq_b": ParamSpec((m.q_lora_rank, nq, qh), ("mla_rank", "heads", "head_dim"), "scaled"),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("embed", "mla_rank"), "scaled"),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), ("mla_rank",), "ones"),
+        "wk_b": ParamSpec((m.kv_lora_rank, nq, m.qk_nope_head_dim),
+                          ("mla_rank", "heads", "head_dim"), "scaled"),
+        "wv_b": ParamSpec((m.kv_lora_rank, nq, m.v_head_dim),
+                          ("mla_rank", "heads", "head_dim"), "scaled"),
+        "wo": ParamSpec((nq, m.v_head_dim, d), ("heads", "head_dim", "embed"), "scaled"),
+    }
+
+
+def _mla_qkv_latent(params, x, *, cfg: ModelConfig, positions):
+    """Shared projection path: returns per-head q (nope, rope), the
+    latent c_kv and the shared k_rope (post-RoPE)."""
+    m = cfg.mla
+    q_lat = rms_norm(linear(x, params["wq_a"]), params["q_norm"],
+                     cfg.norm_eps)
+    q = _project(q_lat, params["wq_b"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    kv = linear(x, params["wkv_a"])
+    c_kv = rms_norm(kv[..., :m.kv_lora_rank], params["kv_norm"],
+                    cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[..., 0, :]
+
+
+def mla_forward(params, x, *, cfg: ModelConfig, positions,
+                chunk: int = MLA_CHUNK, return_cache: bool = False):
+    """Prefill MLA: the latent expanded to per-head K/V, causal attention
+    with the scale of the full QK head width, (qk_nope + qk_rope)**-0.5.
+    `positions` is ``arange(S)`` in every row.  With `return_cache`,
+    returns (y, (c_kv, k_rope)), the decode cache's entries from the same
+    projection."""
+    m = cfg.mla
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(params, x, cfg=cfg,
+                                                   positions=positions)
+    k_nope = _project(c_kv, params["wk_b"])
+    v = _project(c_kv, params["wv_b"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1)
+    out = _attend_chunked(q[:, :, :, None, :], k, v, q_positions=positions,
+                          kv_positions=positions, causal=True, window=0,
+                          chunk=chunk)                   # g=1 (nkv == nq)
+    y = _out_proj(out[..., 0, :], params["wo"])
+    return (y, (c_kv, k_rope)) if return_cache else y
+
+
+def init_mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    m = cfg.mla
+    return {
+        "c_kv": ((batch, max_len, m.kv_lora_rank), ("batch", "kv_seq", "mla_rank")),
+        "k_rope": ((batch, max_len, m.qk_rope_head_dim), ("batch", "kv_seq", None)),
+        "pos": ((batch, max_len), ("batch", "kv_seq")),
+    }
+
+
+def mla_decode(params, x, cache, *, cfg: ModelConfig, positions):
+    """Absorbed-matmul MLA decode against the compressed latent cache.
+    x: (B,1,d); positions: (B,) int32; cache: this layer's {"c_kv",
+    "k_rope", "pos"}, the new token written in place at slot
+    pos % max_len.  Returns (y, cache)."""
+    m = cfg.mla
+    b = x.shape[0]
+    q_nope, q_rope, c_new, r_new = _mla_qkv_latent(
+        params, x, cfg=cfg, positions=positions[:, None])
+    c_cache, r_cache, pos_cache = cache["c_kv"], cache["k_rope"], cache["pos"]
+    idx = (torch.arange(b, device=x.device),
+           (positions % c_cache.shape[1]).long())
+    c_cache.index_put_(idx, c_new[:, 0].to(c_cache.dtype))
+    r_cache.index_put_(idx, r_new[:, 0].to(r_cache.dtype))
+    pos_cache.index_put_(idx, positions.to(pos_cache.dtype))
+    # absorb: q_lat[b,s,h,r] = q_nope[b,s,h,e] @ wk_b[r,h,e]
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope,
+                         params["wk_b"].to(q_nope.dtype))
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_cache.float())
+              + torch.einsum("bshe,bte->bhst", q_rope.float(),
+                             r_cache.float())) * scale
+    valid = (pos_cache >= 0) & (pos_cache <= positions[:, None])
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhst,btr->bshr", probs.to(c_cache.dtype),
+                           c_cache)
+    out = torch.einsum("bshr,rhe->bshe", out_lat,
+                       params["wv_b"].to(out_lat.dtype))
+    return _out_proj(out, params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional (encoder) + cross attention, for the enc-dec (whisper) family
+# ---------------------------------------------------------------------------
+
+def encoder_attention(params, x, *, cfg: ModelConfig, positions):
+    """Bidirectional GQA with RoPE over the encoder's frames."""
+    q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
+    k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
+    v = _project(x, params["wv"])
+    out = flash_attention_op(q, k, v, causal=False)
+    return _out_proj(out, params["wo"])
+
+
+def cross_attention(params, x, enc_k, enc_v, *, cfg: ModelConfig):
+    """x: (B,S,d) decoder side (the prompt, or one decode token); enc_k,
+    enc_v: (B,T,nkv,hd) precomputed (`cross_kv`).  No RoPE, no mask."""
+    q = _project(x, params["wq"])
+    out = flash_attention_op(q, enc_k, enc_v, causal=False)
+    return _out_proj(out, params["wo"])
+
+
+def cross_kv(params, enc_out):
+    return _project(enc_out, params["wk"]), _project(enc_out, params["wv"])

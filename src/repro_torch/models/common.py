@@ -35,9 +35,12 @@ class ParamSpec:
 
 def tree_map(fn, tree):
     """Apply `fn` to every leaf of a tree of dicts (keys in sorted order,
-    the order ``jax.tree_util`` walks a dict in)."""
+    the order ``jax.tree_util`` walks a dict in), tuples and lists (each
+    kept as its own type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
     return fn(tree)
 
 
@@ -81,7 +84,7 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
     if spec.init == "scaled":  # 1/sqrt(fan_in), fan_in as the JAX package
         fan_in = (spec.shape[0] if len(spec.shape) >= 2
                   else max(spec.shape[-1], 1))
-        scale = 1.0 / np.sqrt(fan_in)
+        scale = 1.0 / np.sqrt(max(fan_in, 1))     # 0: a stack of no layers
     out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
     flat = out.view(-1)
     # drawn in fp32 in slices of at most DRAW_ELEMENTS, each scaled and

@@ -7,29 +7,37 @@
   cache_spec(batch, max_len)     -> tree of (shape, logical_axes)
   token_seq_len(seq_len)         text tokens in a sequence of seq_len
 
-The port of ``repro/models/model.py`` for the dense GQA, MoE (GQA
-attention), SSM, hybrid and vision families.  Prefill and decode run
-under ``torch.inference_mode()``.  Cache layouts follow the JAX package:
-the dense, MoE, vision and SSM families stack their layers' caches,
-``{"main": {"kv": {"k","v","pos"}}}`` and ``{"main": {"ssm":
-{"conv","ssm"}}}`` with a leading layer axis, and a config with
-``moe.first_k_dense`` puts its leading dense layers' cache under
-``"dense"`` beside ``"main"``; the hybrid (parallel SSM) family keeps a
-tuple of per-layer ``{"kv", "ssm"}`` dicts, each layer's KV cache as long
-as its own window (a rolling ``window``-slot cache on sliding-window
-layers, ``max_len`` slots on global ones).  A vision config prepends the
-projected patch embeddings (``batch["patch_embeds"]``, (B, Nv, Dv)) to
-the text, so text position t sits at sequence position Nv + t.  Decode
-walks the layers in a Python loop and writes each layer's cache in place
-(``_scan_decode`` in the JAX package carries the cache through a scan for
-the same reason), so `decode` returns the very cache objects it was
-given.  Training (``train_forward``) comes with the training slice; MLA,
-multi-token prediction and enc-dec raise NotImplementedError.
+The port of ``repro/models/model.py``, for every family of
+``repro_torch.configs``.  Prefill and decode run under
+``torch.inference_mode()``.  Cache layouts follow the JAX package:
+- the dense, MoE, vision and SSM families stack their layers' caches,
+  ``{"main": {"kv": {"k","v","pos"}}}`` and ``{"main": {"ssm":
+  {"conv","ssm"}}}`` with a leading layer axis, and a config with
+  ``moe.first_k_dense`` puts its leading dense layers' cache under
+  ``"dense"`` beside ``"main"``;
+- MLA (DeepSeek-V3) caches the compressed latent the same way,
+  ``{"kv": {"c_kv","k_rope","pos"}}`` of ``max_len`` slots (no window);
+- enc-dec (Whisper) keeps ``{"main": {"kv": {"k","v","pos"}, "cross":
+  (k, v)}}``, the cross K/V of the encoder's output (L,B,T,nkv,hd),
+  computed once in prefill from ``batch["frames"]`` (B,T,d) and read by
+  every decode step;
+- the hybrid (parallel SSM) family keeps a tuple of per-layer ``{"kv",
+  "ssm"}`` dicts, each layer's KV cache as long as its own window (a
+  rolling ``window``-slot cache on sliding-window layers, ``max_len``
+  slots on global ones).
+A vision config prepends the projected patch embeddings
+(``batch["patch_embeds"]``, (B, Nv, Dv)) to the text, so text position t
+sits at sequence position Nv + t.  Decode walks the layers in a Python
+loop and writes each layer's cache in place (``_scan_decode`` in the JAX
+package carries the cache through a scan for the same reason), so
+`decode` returns the very cache objects it was given.  Training
+(``train_forward``, which alone runs DeepSeek-V3's multi-token
+prediction) comes with the training slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict
 
 import torch
 import torch.nn.functional as F
@@ -101,12 +109,32 @@ def _kv_cache_from_prefill(kv, positions, max_len: int, window: int):
     return {"k": kc, "v": vc, "pos": pos.contiguous()}
 
 
+def _mla_cache_from_prefill(kv, positions, max_len: int):
+    """(c_kv, k_rope) stacked (L,B,S,...) -> decode cache {"c_kv",
+    "k_rope","pos"} of max_len slots, each leaf its own contiguous tensor
+    (decode writes them in place)."""
+    c_kv, k_rope = kv
+    l, b, s = c_kv.shape[:3]
+    cc = c_kv.new_zeros((l, b, max_len, c_kv.shape[3]))
+    rc = k_rope.new_zeros((l, b, max_len, k_rope.shape[3]))
+    cc[:, :, :s] = c_kv
+    rc[:, :, :s] = k_rope
+    pos = torch.full((b, max_len), -1, dtype=torch.int32, device=c_kv.device)
+    pos[:, :s] = positions
+    return {"c_kv": cc, "k_rope": rc,
+            "pos": pos[None].expand((l,) + tuple(pos.shape)).contiguous()}
+
+
 def _stack_cache_spec(cfg: ModelConfig, num_layers: int, batch: int,
                       max_len: int, window: int):
     """(shape, logical) specs for the stacked decode cache."""
     out: Dict[str, Any] = {}
+    spec = None
     if cfg.attention == "gqa":
         spec = attn.init_gqa_cache_spec(cfg, batch, max_len, window)
+    elif cfg.attention == "mla":
+        spec = attn.init_mla_cache_spec(cfg, batch, max_len)
+    if spec is not None:
         out["kv"] = {k: ((num_layers,) + sh, ("layers",) + lg)
                      for k, (sh, lg) in spec.items()}
     if cfg.ssm is not None:
@@ -116,34 +144,32 @@ def _stack_cache_spec(cfg: ModelConfig, num_layers: int, batch: int,
     return out
 
 
-def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.attention not in ("gqa", "none"):
-        return f"attention={cfg.attention!r}"
-    if cfg.encoder_layers:
-        return "enc-dec"
-    if cfg.mtp_depth:
-        return "multi-token prediction"
-    return None
-
-
 # ---------------------------------------------------------------------------
 # builder
 # ---------------------------------------------------------------------------
 
 def build_model(cfg: ModelConfig) -> Model:
-    kind = _unsupported(cfg)
-    if kind is not None:
-        raise NotImplementedError(
-            f"build_model({cfg.name}): the {kind} family is not ported yet "
-            f"(ROADMAP.md, 'Model families'); the port serves dense GQA, "
-            f"MoE, SSM, hybrid and vision models")
     specs = tfm.model_specs(cfg)
 
     def init(generator: torch.Generator, device: DeviceLike = None):
         return init_params(specs, generator, resolve_device(device))
 
+    def encdec_prefill(params, batch, max_len: int):
+        enc_out = tfm.encoder_forward(
+            params, batch["frames"].to(getattr(torch, cfg.dtype)), cfg)
+        x = tfm.embed_tokens(params, batch["tokens"], cfg)
+        pos = _positions(*x.shape[:2], x.device)
+        x, (kv, cross) = tfm.encdec_decoder_forward(
+            params, x, enc_out, cfg, positions=pos, need_cache=True)
+        cache = {"main": {"kv": _kv_cache_from_prefill(kv, pos, max_len, 0),
+                          "cross": cross}}
+        logits = tfm.lm_logits(params, x[:, -1:], cfg)
+        return logits[:, 0], cache
+
     @torch.inference_mode()
     def prefill(params, batch, max_len: int):
+        if cfg.encoder_layers:
+            return encdec_prefill(params, batch, max_len)
         x, pos = _embed_inputs(params, batch, cfg)
         h, _, collected = tfm.decoder_forward(params, x, cfg, positions=pos,
                                               need_cache=True)
@@ -164,10 +190,11 @@ def build_model(cfg: ModelConfig) -> Model:
                 kvs, states = got["kv"], got["ssm"]
                 entry: Dict[str, Any] = {}
                 if kvs is not None:
-                    entry["kv"] = _kv_cache_from_prefill(
-                        (torch.stack([k for k, _ in kvs]),
-                         torch.stack([v for _, v in kvs])),
-                        pos, max_len, cfg.sliding_window)
+                    stacked = tuple(torch.stack(t) for t in zip(*kvs))
+                    entry["kv"] = (
+                        _mla_cache_from_prefill(stacked, pos, max_len)
+                        if cfg.attention == "mla" else _kv_cache_from_prefill(
+                            stacked, pos, max_len, cfg.sliding_window))
                 if states is not None:
                     entry["ssm"] = {n: torch.stack([st[n] for st in states])
                                     for n in ("conv", "ssm")}
@@ -202,6 +229,14 @@ def build_model(cfg: ModelConfig) -> Model:
                                                 tfm._layer_window(cfg, i)),
                  "ssm": ssm_mod.init_ssm_state_spec(cfg, batch)}
                 for i in range(cfg.num_layers))
+        if cfg.encoder_layers:
+            spec = _stack_cache_spec(cfg, cfg.num_layers, batch, max_len, 0)
+            shape = (cfg.num_layers, batch, cfg.encoder_seq_len,
+                     cfg.num_kv_heads, cfg.resolved_head_dim)
+            logical = ("layers", "batch", None, "act_kv_heads",
+                       "act_head_dim")
+            spec["cross"] = ((shape, logical), (shape, logical))
+            return {"main": spec}
         return {name: _stack_cache_spec(cfg, n, batch, max_len,
                                         cfg.sliding_window)
                 for name, _, n in tfm.stacks(cfg)}

@@ -1,19 +1,23 @@
-"""Decoder assembly for the dense GQA, MoE, SSM, hybrid and vision
-families (llama, yi, starcoder2, mixtral, falcon-mamba, hymba, internvl2,
-...).
+"""Decoder and enc-dec assembly for every family of ``repro_torch.configs``:
+dense GQA, MoE, MLA, SSM, hybrid, vision and enc-dec (llama, yi,
+starcoder2, mixtral, deepseek-v3, falcon-mamba, hymba, internvl2,
+whisper, ...).
 
-The port of the decoder half of ``repro/models/transformer.py``.  One
-layer definition parameterized by the attention kind (gqa | none), the
-FFN kind (dense | moe) and the parallel-SSM flag; the stacked ``(L, ...)``
-layer leaves run in a Python loop over layers, in place of ``lax.scan``,
-each layer with its own window (hymba's global layers attend in full).  A
+The port of ``repro/models/transformer.py``.  One layer definition
+parameterized by the attention kind (gqa | mla | none), the FFN kind
+(dense | moe) and the parallel-SSM flag; the stacked ``(L, ...)`` layer
+leaves run in a Python loop over layers, in place of ``lax.scan``, each
+layer with its own window (hymba's global layers attend in full).  A
 config with ``moe.first_k_dense`` keeps its leading dense layers in a
 stack of their own (``layers_dense``) before the MoE stack (``layers``);
 a vision config adds the projector (``proj1``, ``proj2``) that
-``models/model.py`` applies to the patch embeddings.  Nothing here is
-differentiated, so there is no remat; the MoE aux loss is summed and
-returned, and the serving stack drops it.  MLA, MTP and enc-dec stacks
-come with their model families (``models/model.py`` raises for them).
+``models/model.py`` applies to the patch embeddings; an enc-dec config
+has an encoder stack (``enc_layers``, ``enc_norm``) and decoder layers
+with cross attention (``norm_x``, ``xattn``).  DeepSeek-V3's
+multi-token-prediction module (``mtp``) is in the parameter tree, as in
+the JAX package, but nothing here runs it: only training reads it.
+Nothing here is differentiated, so there is no remat; the MoE aux loss
+is summed and returned, and the serving stack drops it.
 """
 from __future__ import annotations
 
@@ -52,6 +56,8 @@ def layer_specs(cfg: ModelConfig, ffn: str = "dense",
     specs: Dict[str, Any] = {"norm1": ParamSpec((d,), ("embed",), "ones")}
     if cfg.attention == "gqa":
         specs["attn"] = attn.gqa_specs(cfg)
+    elif cfg.attention == "mla":
+        specs["attn"] = attn.mla_specs(cfg)
     if cfg.ssm is not None:
         specs["ssm"] = ssm_mod.ssm_specs(cfg)
         if cfg.parallel_ssm:
@@ -66,6 +72,23 @@ def layer_specs(cfg: ModelConfig, ffn: str = "dense",
     return specs
 
 
+def encoder_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "norm1": ParamSpec((d,), ("embed",), "ones"),
+        "attn": attn.gqa_specs(cfg),
+        "norm2": ParamSpec((d,), ("embed",), "ones"),
+        "ffn": dense_ffn_specs(cfg, cfg.d_ff),
+    }
+
+
+def decoder_xattn_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    specs = layer_specs(cfg, ffn="dense")
+    specs["norm_x"] = ParamSpec((cfg.d_model,), ("embed",), "ones")
+    specs["xattn"] = attn.gqa_specs(cfg)
+    return specs
+
+
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.vocab_size
     specs: Dict[str, Any] = {
@@ -74,6 +97,13 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, v), ("embed", "vocab"), "scaled")
+    if cfg.encoder_layers:  # enc-dec (whisper)
+        specs["enc_layers"] = stack_specs(encoder_layer_specs(cfg),
+                                          cfg.encoder_layers)
+        specs["enc_norm"] = ParamSpec((d,), ("embed",), "ones")
+        specs["layers"] = stack_specs(decoder_xattn_layer_specs(cfg),
+                                      cfg.num_layers)
+        return specs
     if cfg.vision_tokens:  # vlm projector (stubbed ViT -> LM)
         dv = cfg.vision_embed_dim
         specs["proj1"] = ParamSpec((dv, d), (None, "embed"), "scaled")
@@ -90,16 +120,28 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
         specs["layers"] = stack_specs(
             layer_specs(cfg, ffn="moe" if cfg.is_moe else "dense"),
             cfg.num_layers)
+    if cfg.mtp_depth:  # DeepSeek-V3 multi-token prediction module
+        dense_ff = (cfg.moe.first_dense_d_ff if cfg.is_moe else 0) or cfg.d_ff
+        specs["mtp"] = {
+            "norm_h": ParamSpec((d,), ("embed",), "ones"),
+            "norm_e": ParamSpec((d,), ("embed",), "ones"),
+            "proj": ParamSpec((2 * d, d), (None, "embed"), "scaled"),
+            "layer": layer_specs(cfg, ffn="dense", d_ff=dense_ff),
+            "final_norm": ParamSpec((d,), ("embed",), "ones"),
+        }
     return specs
 
 
 def stacks(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
     """The decoder's layer stacks in order: (cache name, param name, layer
     count) -- ``("dense", "layers_dense", k)`` first where the config has
-    ``moe.first_k_dense``, then ``("main", "layers", ...)``."""
+    ``moe.first_k_dense``, then ``("main", "layers", ...)``.  A stack of
+    no layers (DeepSeek-V3 cut to its first 3, dense, layers) is left
+    out: it has no cache."""
     k = cfg.moe.first_k_dense if cfg.is_moe else 0
-    out = [("dense", "layers_dense", k)] if k else []
-    return out + [("main", "layers", cfg.num_layers - k)]
+    out = [("dense", "layers_dense", k),
+           ("main", "layers", cfg.num_layers - k)]
+    return [st for st in out if st[2]]
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +174,9 @@ def _ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions, window: int, need_cache: bool = False):
-    """Full-sequence layer.  Returns (x, MoE aux loss or 0, (k, v) or
-    None, ssm state or None); the caches only with `need_cache`."""
+    """Full-sequence layer.  Returns (x, MoE aux loss or 0, the attention
+    cache's entries -- (k, v) for GQA, (c_kv, k_rope) for MLA -- or None,
+    ssm state or None); the caches only with `need_cache`."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     cache_kv = new_ssm_state = None
     branch = 0.0
@@ -146,6 +189,12 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
         if need_cache:
             cache_kv = attn.gqa_prefill_kv(lp["attn"], h, cfg=cfg,
                                            positions=positions)
+    elif cfg.attention == "mla":
+        a = attn.mla_forward(lp["attn"], h, cfg=cfg, positions=positions,
+                             return_cache=need_cache)
+        if need_cache:
+            a, cache_kv = a
+        branch = branch + a
     if cfg.ssm is not None:
         if need_cache:
             s_out, new_ssm_state = ssm_mod.mamba_forward(
@@ -165,14 +214,28 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
 def layer_decode(lp: Params, x: torch.Tensor, cache, cfg: ModelConfig, *,
                  positions, window: int) -> torch.Tensor:
     """One-token layer step; ``cache["kv"]`` and ``cache["ssm"]`` (those
-    the layer has) are written in place."""
+    the layer has) are written in place; an enc-dec decoder layer reads
+    its encoder K/V from ``cache["cross"]``."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if "xattn" in lp:  # enc-dec decoder layer: self-attn then cross-attn
+        a, _ = attn.gqa_decode(lp["attn"], h, cache["kv"], cfg=cfg,
+                               positions=positions, window=window)
+        x = x + a.to(x.dtype)
+        hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+        ek, ev = cache["cross"]
+        x = x + attn.cross_attention(lp["xattn"], hx, ek, ev,
+                                     cfg=cfg).to(x.dtype)
+        return _ffn(lp, x, cfg)[0]
     branch = 0.0
     if cfg.attention == "gqa":
         a, _ = attn.gqa_decode(lp["attn"], h, cache["kv"], cfg=cfg,
                                positions=positions, window=window)
         if cfg.parallel_ssm:
             a = rms_norm(a, lp["attn_norm"], cfg.norm_eps)
+        branch = branch + a
+    elif cfg.attention == "mla":
+        a, _ = attn.mla_decode(lp["attn"], h, cache["kv"], cfg=cfg,
+                               positions=positions)
         branch = branch + a
     if cfg.ssm is not None:
         s_out, _ = ssm_mod.mamba_decode(lp["ssm"], h, cache["ssm"], cfg)
@@ -194,8 +257,9 @@ def decoder_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """Runs the decoder stacks on embedded inputs -> (hidden, aux, caches).
     aux sums the MoE layers' aux losses (0 without MoE).  With
     `need_cache`, caches maps each stack's cache name (``stacks``) to
-    ``{"kv": [(k, v) per layer] or None, "ssm": [{"conv", "ssm"} per
-    layer] or None}``, k/v (B,S,nkv,hd); else None."""
+    ``{"kv": [(k, v) or (c_kv, k_rope) per layer] or None, "ssm":
+    [{"conv", "ssm"} per layer] or None}``, k/v (B,S,nkv,hd), c_kv
+    (B,S,kv_lora_rank), k_rope (B,S,qk_rope_head_dim); else None."""
     aux = 0.0
     caches: Dict[str, Any] = {}
     for name, key, n in stacks(cfg):
@@ -212,9 +276,53 @@ def decoder_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             aux = aux + a
             kvs.append(kv)
             states.append(st)
-        caches[name] = {"kv": kvs if cfg.attention == "gqa" else None,
+        caches[name] = {"kv": kvs if cfg.attention in ("gqa", "mla")
+                        else None,
                         "ssm": states if cfg.ssm is not None else None}
     return x, aux, (caches if need_cache else None)
+
+
+def encoder_forward(params: Params, frames: torch.Tensor, cfg: ModelConfig):
+    """Whisper-style encoder over (stubbed) frame embeddings (B,T,d)."""
+    b, t = frames.shape[:2]
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=frames.device).expand(b, t)
+    x = frames
+    for i in range(cfg.encoder_layers):
+        lp = layer_slice(params["enc_layers"], i)
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        x = x + attn.encoder_attention(lp["attn"], h, cfg=cfg,
+                                       positions=positions).to(x.dtype)
+        x = _ffn(lp, x, cfg)[0]
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def encdec_decoder_forward(params: Params, x: torch.Tensor,
+                           enc_out: torch.Tensor, cfg: ModelConfig, *,
+                           positions, need_cache: bool = False):
+    """Whisper decoder: self-attn + cross-attn + ffn per layer ->
+    (hidden, caches).  With `need_cache`, caches is ((k, v), (ek, ev)),
+    each stacked over the layers: the self-attention's (L,B,S,nkv,hd)
+    and the encoder's cross K/V (L,B,T,nkv,hd); else None."""
+    kvs, crosses = [], []
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], i)
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        x = x + attn.gqa_forward(lp["attn"], h, cfg=cfg, positions=positions,
+                                 window=0).to(x.dtype)
+        hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+        ek, ev = attn.cross_kv(lp["xattn"], enc_out)
+        x = x + attn.cross_attention(lp["xattn"], hx, ek, ev,
+                                     cfg=cfg).to(x.dtype)
+        x = _ffn(lp, x, cfg)[0]
+        if need_cache:
+            kvs.append(attn.gqa_prefill_kv(lp["attn"], h, cfg=cfg,
+                                           positions=positions))
+            crosses.append((ek, ev))
+    if not need_cache:
+        return x, None
+    stack = lambda pairs: tuple(torch.stack(t) for t in zip(*pairs))
+    return x, (stack(kvs), stack(crosses))
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig):

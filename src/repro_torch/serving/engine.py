@@ -464,6 +464,12 @@ class ServingEngine:
             batch["patch_embeds"] = torch.zeros(
                 (len(ctx_rows), cfg.vision_tokens, cfg.vision_embed_dim),
                 dtype=torch.float32, device=device)
+        if getattr(cfg, "encoder_layers", 0):
+            # the audio front end is a stub: zero frame embeddings, as the
+            # JAX engine
+            batch["frames"] = torch.zeros(
+                (len(ctx_rows), cfg.encoder_seq_len, cfg.d_model),
+                dtype=torch.float32, device=device)
         return batch
 
     # -- the continuous-batching loop ------------------------------------

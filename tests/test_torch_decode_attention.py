@@ -414,3 +414,12 @@ def test_cuda_kernel_ignores_nan_in_empty_slots_on_the_card():
     dirty = _port((q, k, v, cpos, pos), device="cuda", impl="cuda")
     torch.cuda.synchronize()
     assert torch.equal(clean, dirty)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_whisper_decode_shape_on_the_card():
+    """Whisper-base's decoder self-attention: 8 query heads over 8 kv heads
+    (G=1) of 64 in bf16 on the tensor-core route, 448 slots full (its text
+    context), at B=4."""
+    _card()
+    _check_on_card(_inputs(4, 448, 8, 8, 64, 1.0, seed=11), "bfloat16", 0)

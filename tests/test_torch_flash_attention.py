@@ -4,8 +4,9 @@ The same numpy inputs go through the port's plain version (ref.py), the
 JAX oracle and the JAX Pallas kernel in interpret mode (as
 tests/test_kernels.py runs it on the CPU), over the grid of
 test_kernels.py (S, heads, H, causal, window), plus G = 5 query heads per
-kv head (Hymba's 25/5) and ragged S, which only the oracle takes (the
-Pallas kernel needs S divisible by its block).  Tolerances: atol/rtol 2e-5
+kv head (Hymba's 25/5), ragged S, which only the oracle takes (the
+Pallas kernel needs S divisible by its block), and non-causal Sq != Skv
+(Whisper's cross attention).  Tolerances: atol/rtol 2e-5
 in fp32 and 2e-2 in bf16, as test_kernels.py.  The plain attention with P
 rounded to bf16 before P.V, as the tensor-core kernel rounds it, is held to
 the fp32 plain result at the bf16 tolerance here, and the tensor-core
@@ -104,6 +105,23 @@ def test_ragged_sequence_matches_jax_ref(sq, heads, h, window):
     ours = _port(args, window=window).numpy()
     (want,) = _jax(args, window=window, kernel=False)
     np.testing.assert_allclose(ours, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("sq,skv,heads", [(64, 192, (8, 8)),
+                                           (1, 192, (8, 8)),
+                                           (128, 64, (4, 2))])
+def test_cross_shapes_match_jax_ref_and_kernel(sq, skv, heads):
+    """Non-causal attention with Sq != Skv, as Whisper's cross attention
+    runs it: the prompt's queries (or one decode token's) against all the
+    encoder's frames, fp32 and bf16."""
+    args = _inputs(2, sq, *heads, 64, seed=4, skv=skv)
+    ours = _port(args, causal=False).numpy()
+    assert ours.shape == (2, sq, heads[0], 64)
+    for want in _jax(args, causal=False):
+        np.testing.assert_allclose(ours, want, atol=2e-5, rtol=2e-5)
+    ours = _port(args, "bfloat16", causal=False).float().numpy()
+    for want in _jax(args, "bfloat16", causal=False):
+        np.testing.assert_allclose(ours, want, atol=2e-2, rtol=2e-2)
 
 
 def test_causality():
@@ -229,6 +247,13 @@ CARD = [((1, 2048, 25, 5, 64), "bfloat16", True, 1024),
         ((1, 130, 4, 2, 128), "float32", False, 48)]
 
 
+# Whisper-base's shapes, non-causal, at reduced batch: the encoder (1500
+# frames), cross attention of a 64-token prompt and of one decode token
+# against the 1500 frames (8/8 heads of 64)
+CROSS_CARD = [((2, 1500, 8, 8, 64), 1500), ((2, 64, 8, 8, 64), 1500),
+              ((8, 1, 8, 8, 64), 1500)]
+
+
 # the tensor-core kernel against `_rounded_p_attention`: the output's own
 # bf16 rounding can differ by one ulp, and a bf16 weight can round the other
 # way where the fp32 scores differ in their last bits, which moves a row of
@@ -273,3 +298,28 @@ def test_cuda_kernel_matches_plain_version_on_the_card(shape, dtype, causal,
         assert bool((err <= limit).all()), (
             f"max |err| {float(err.max())}, "
             f"max err/limit {float((err / limit).max())}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,skv", CROSS_CARD)
+def test_cuda_kernel_whisper_shapes_on_the_card(shape, skv):
+    """Non-causal with Sq != Skv on the tensor-core kernel: against the
+    fp32 plain result at 2e-2 and against its own rounding
+    (`_rounded_p_attention`) within TC_ULPS bf16 ulps + TC_ATOL."""
+    _card()
+    args = _inputs(*shape, seed=9, skv=skv)
+    cores, tensor_cores = _launches()
+    got = _port(args, "bfloat16", causal=False, device="cuda", impl="auto")
+    torch.cuda.synchronize()
+    assert _launches() == (cores, tensor_cores + 1)
+    rounded = [torch.from_numpy(x).bfloat16().float() for x in args]
+    want = flash_attention_ref(*rounded, causal=False).bfloat16().float()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                               atol=2e-2, rtol=2e-2)
+    qd, kd, vd = (t.to("cuda", torch.bfloat16) for t in rounded)
+    close = _rounded_p_attention(qd, kd, vd, causal=False).float()
+    err = (got.float() - close).abs()
+    limit = TC_ULPS * _bf16_ulp(close) + TC_ATOL
+    assert bool((err <= limit).all()), (
+        f"max |err| {float(err.max())}, "
+        f"max err/limit {float((err / limit).max())}")

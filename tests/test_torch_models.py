@@ -30,7 +30,7 @@ from repro.configs.base import reduced as ref_reduced  # noqa: E402
 from repro.models.model import build_model as ref_build_model  # noqa: E402
 from repro_torch.carry import (params_from_numpy,  # noqa: E402
                                params_to_numpy)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.base import reduced  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -194,12 +194,6 @@ def test_other_dense_configs_match_the_reference_fp32(arch):
     got, _ = _run_port(port, tp, prompt, feed=feed)
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
-
-
-@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "whisper_base"])
-def test_other_families_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="Model families"):
-        build_model(reduced(get_config(arch)))
 
 
 def test_cache_spec_matches_prefill_cache():
@@ -617,3 +611,36 @@ def test_init_draws_a_leaf_in_slices(monkeypatch):
     # slices are independent draws, not one slice repeated
     flat = leaf.view(-1)
     assert not torch.equal(flat[:1000], flat[1000:2000])
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_builds_prefills_and_decodes(arch):
+    """Every config of repro_torch.configs, reduced, builds (no family
+    raises), and one prefill and two decode steps on the CPU give finite
+    logits of the vocabulary's width; the cache's leaves have the shapes
+    of cache_spec."""
+    cfg = reduced(get_config(arch), dtype="float32")
+    model = build_model(cfg)
+    tp = model.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(26)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, PROMPT)).astype(np.int32))}
+    if cfg.vision_tokens:
+        batch["patch_embeds"] = torch.zeros(
+            (B, cfg.vision_tokens, cfg.vision_embed_dim))
+    if cfg.encoder_layers:
+        batch["frames"] = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model))
+    logits, cache = model.prefill(tp, batch, max_len=MAX_LEN)
+    is_spec = lambda t: (isinstance(t, tuple) and len(t) == 2
+                         and isinstance(t[0], tuple)
+                         and all(isinstance(n, int) for n in t[0]))
+    spec = jax.tree.leaves(model.cache_spec(B, MAX_LEN), is_leaf=is_spec)
+    assert [tuple(t.shape) for t in tree_leaves(cache)] == \
+        [tuple(s) for s, _ in spec]
+    pos = torch.full((B,), PROMPT + cfg.vision_tokens, dtype=torch.int32)
+    for _ in range(2):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        logits, cache = model.decode(tp, cache, tok, pos)
+        pos = pos + 1
+    assert tuple(logits.shape) == (B, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())

@@ -251,6 +251,35 @@ def test_serve_cli_hymba_smoke(monkeypatch):
     assert [(c.parallel_ssm, c.decode_kernel) for c in built] == [(True, True)]
 
 
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "whisper_base"])
+def test_serve_cli_mla_and_encdec_smoke(arch, monkeypatch):
+    """``--arch deepseek_v3_671b`` (MLA + MoE) and ``--arch whisper_base``
+    (enc-dec) at ``--preset smoke --device cpu``: exact counts, kernel
+    decode on in the config built."""
+    stats, built = _serve_cli(arch, monkeypatch)
+    assert stats["completed"] == 6
+    assert stats["tokens_served"] == 6 * 8
+    assert stats["decode_steps"] > 0
+    assert [(c.attention, bool(c.encoder_layers), c.decode_kernel)
+            for c in built] == [("mla" if arch.startswith("deepseek")
+                                 else "gqa", arch == "whisper_base", True)]
+
+
+def test_serve_cli_layers_cuts_the_depth(monkeypatch):
+    """``--layers`` serves the config cut to that many decoder layers."""
+    import repro_torch.launch.serve as serve
+    built = []
+    real = serve.build_model
+    monkeypatch.setattr(serve, "build_model",
+                        lambda cfg: built.append(cfg) or real(cfg))
+    stats = serve.main([
+        "--arch", "deepseek_v3_671b", "--preset", "smoke", "--layers", "3",
+        "--requests", "2", "--batch", "2", "--prompt-len", "4", "--gen",
+        "3", "--max-len", "16", "--device", "cpu"])
+    assert stats["tokens_served"] == 6
+    assert [(c.num_layers, c.moe.first_k_dense) for c in built] == [(3, 1)]
+
+
 @pytest.mark.parametrize("preset", ["smoke", "20m", "full"])
 def test_cli_presets_decode_with_the_kernel(preset):
     from repro_torch.launch.train import scaled_config
@@ -378,10 +407,28 @@ def test_vision_engine_tokens_equal_the_jax_engine_on_carried_weights():
     assert firsts[0] == [4 + 6, 4 + 6], firsts[0]
 
 
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_mla_engine_tokens_equal_the_jax_engine_on_carried_weights(cf):
+    """Reduced DeepSeek-V3 (a dense MLA layer, then an MoE layer with the
+    sigmoid router and a shared expert) at capacity factors 1.25 and 8.0:
+    refills spliced into the batched latent caches of both stacks (see
+    _engine_tokens_match)."""
+    _engine_tokens_match("deepseek_v3_671b", (6, 6, 9, 7, 6), max_len=32,
+                         moe={"capacity_factor": cf})
+
+
+def test_encdec_engine_tokens_equal_the_jax_engine_on_carried_weights():
+    """Reduced Whisper: the engine feeds zero frames, as the JAX engine
+    does; refills splice the self-attention cache and the cross (k, v)
+    tuple into their rows (see _engine_tokens_match)."""
+    _engine_tokens_match("whisper_base", (6, 6, 9, 7, 6), max_len=32)
+
+
 def test_port_modules_and_chip_smoke_import_nothing_of_jax():
     """Every module of src/repro_torch imports (in a fresh interpreter)
     without pulling in jax or the JAX package, and chip_smoke.py names
-    neither in any import; the CLI serves the MoE and vision configs."""
+    neither in any import; the CLI serves the MoE, vision, MLA and enc-dec
+    configs."""
     import ast
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -391,7 +438,8 @@ def test_port_modules_and_chip_smoke_import_nothing_of_jax():
         for name in names:
             importlib.import_module(name)
         from repro_torch.launch.serve import main
-        for arch in ("mixtral_8x22b", "internvl2_2b"):
+        for arch in ("mixtral_8x22b", "internvl2_2b", "deepseek_v3_671b",
+                     "whisper_base"):
             st = main(["--arch", arch, "--preset", "smoke", "--requests",
                        "2", "--batch", "2", "--prompt-len", "4", "--gen",
                        "3", "--max-len", "16", "--device", "cpu"])
