@@ -36,13 +36,26 @@ kernels' launch counts set to 0 just before and read just after:
   experts are PyTorch products, as the JAX package runs them in jnp); its
   model check holds the bf16 logits to an fp32 run and the absorbed decode
   to the expanded prefill.
+- training Llama-3.2-1B at its published config (after the Llama
+  serving phase, its memory freed before Hymba's): 30 steps of 8 x 1024
+  tokens through ``launch.train.run`` (the training CLI's body: a pilot,
+  one compute unit per step, bf16 params, fp32 AdamW, remat "full"),
+  after 3 steps of reduced(llama3_2_1b) in fp32 held card against CPU and
+  the first full-width step held bf16 against fp32; its median step,
+  tokens per second, model-FLOP share, peak memory, a traced step's
+  forward/backward/optimizer split, its checkpoint (bytes, write seconds,
+  a bit-for-bit restore), the 100m preset's failure recovery and options,
+  and the training scan's time.  Training launches none of the four
+  kernels (they are forward-only, and the JAX package trains through none
+  of its Pallas kernels): each count is 0, and is asserted so.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without CUDA or outside a checkout of the
 repository.  It imports nothing of JAX or of the JAX package.
 
 Output: progress lines, then the card's name and power limit, a
-``{"kernels": [...]}`` line, and as the last line
+``{"training": {...}}`` line, a ``{"kernels": [...]}`` line, and as the
+last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1529,6 +1542,368 @@ def deepseek_step(torch, cfg, params) -> dict:
     return row
 
 
+# -- the training phase ---------------------------------------------------------
+# Llama-3.2-1B at its published config, trained by launch.train on a pilot:
+# bf16 params, fp32 AdamW state, remat "full", batch 8 x 1024, 30 steps
+TRAIN_ARGV = ["--arch", "llama3_2_1b", "--preset", "full", "--steps", "30",
+              "--batch", "8", "--seq", "1024", "--ckpt-every", "100",
+              "--log-every", "5"]
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# card vs CPU on reduced(llama3_2_1b) in fp32, 3 steps: the metrics, and
+# every param leaf, at these tolerances (the CPU tests' step parity)
+CARD_CPU_METRIC_RTOL, CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-5, 1e-4, 1e-6
+# the first step in bf16 against fp32 at full width (one init, one batch):
+# (loss gap, lowest per-leaf gradient cosine) bounds per init, set from
+# a first run of this check on an H100 (PERF.md §6): on fan-in-scaled
+# weights bf16 tracks fp32 (measured 0.000276, 0.999822); on the trainer's
+# own draw (the reference's fan-in rule, the residual stream growing about
+# 11x a layer) the layers' gradients are chaotic in the rounding
+# (measured 0.000013, 0.084338), and only their sign is held
+BF16_BOUNDS = {"fan_in": (2e-3, 0.999), "trainer": (1e-3, 0.04)}
+
+
+def train_batch(torch, cfg, b: int, s: int, seed: int, device) -> dict:
+    """b rows of s tokens (and their labels) from the training corpus."""
+    from repro_torch.data.pipeline import synthesize_corpus
+    toks = synthesize_corpus(cfg.vocab_size, b * (s + 1), seed=seed)
+    arr = torch.from_numpy(toks.reshape(b, s + 1).astype(np.int64))
+    return {"tokens": arr[:, :-1].to(device),
+            "labels": arr[:, 1:].to(device)}
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """3 train steps of reduced(llama3_2_1b) in fp32 on the card and the
+    same 3 on the CPU, from the same params (`fan_in_params`: on the
+    reference's init the residual stream grows until the two devices'
+    summation orders move the gradients by 1e-5 of their norm) and the
+    same batches."""
+    from repro_torch.configs.base import (ParallelConfig, TrainConfig,
+                                          reduced)
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.train import steps
+    cfg = reduced(get_config("llama3_2_1b"), dtype="float32")
+    model = build_model(cfg)
+    init = tree_map(lambda t: t.float().cpu(), fan_in_params(torch, cfg, 0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        # a copy on each side: the step updates its state in place
+        params = tree_map(lambda t: t.to(dev, copy=True), init)
+        state = steps.TrainState(params, steps.adamw_init(params))
+        step = steps.make_train_step(model, ParallelConfig(), TrainConfig(
+            learning_rate=1e-3, warmup_steps=1, total_steps=10))
+        hist = []
+        for i in range(3):
+            state, m = step(state, train_batch(torch, model.cfg, 4, 64,
+                                               seed=20 + i, device=dev))
+            hist.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (hist, [t.cpu() for t in tree_leaves(state.params)])
+    metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for a, b in zip(runs["cuda"][0], runs["cpu"][0])
+                     for k in b if b[k])
+    leaf_err, leaf_rel, outside = 0.0, 0.0, 0
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        excess = (a - b).abs() - CARD_CPU_RTOL * b.abs()
+        leaf_err = max(leaf_err, float(excess.max()))
+        outside += int((excess > CARD_CPU_ATOL).sum())
+        leaf_rel = max(leaf_rel, float((a - b).norm() / b.norm()))
+    row = {"steps": 3, "metrics_max_rel_err": metric_err,
+           "param_max_err_past_rtol": leaf_err,
+           "param_elements_outside_tol": outside,
+           "param_max_leaf_rel_norm_err": leaf_rel,
+           "loss_card": [h["loss"] for h in runs["cuda"][0]],
+           "loss_cpu": [h["loss"] for h in runs["cpu"][0]],
+           "grad_norm_card": [h["grad_norm"] for h in runs["cuda"][0]],
+           "grad_norm_cpu": [h["grad_norm"] for h in runs["cpu"][0]]}
+    log(f"training, card vs cpu (reduced llama3.2-1b, fp32, 3 steps): "
+        f"metrics max rel err {metric_err:.3e} (limit "
+        f"{CARD_CPU_METRIC_RTOL}); params max |err| past rtol "
+        f"{CARD_CPU_RTOL} {leaf_err:.3e} (limit {CARD_CPU_ATOL}), "
+        f"{outside} elements outside, largest leaf error "
+        f"{leaf_rel:.3e} of its norm; losses card {row['loss_card']} cpu "
+        f"{row['loss_cpu']}; grad norms card {row['grad_norm_card']} cpu "
+        f"{row['grad_norm_cpu']}")
+    assert metric_err <= CARD_CPU_METRIC_RTOL, row
+    assert leaf_err <= CARD_CPU_ATOL, row
+    return row
+
+
+def train_bf16_vs_fp32(torch, cfg, init: str) -> dict:
+    """The first step's loss and gradients at full width in bf16 and in
+    fp32 from one init -- the trainer's own draw (``model.init``, seed 0,
+    the reference's fan-in rule) or `fan_in_params` -- on one batch of
+    8 x 1024: the loss gap and the lowest per-leaf cosine between the two
+    gradients, each held to its bound (``BF16_BOUNDS``)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.train import steps
+    model = build_model(cfg)
+    params = (model.init(torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda") if init == "trainer"
+              else fan_in_params(torch, cfg, seed=0))
+    batch = train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, seed=5,
+                        device="cuda")
+    m16, g16 = steps.loss_and_grads(model, params, batch, TrainConfig())
+    g16 = tree_leaves(g16)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params = tree_map(lambda t: t.float(), params)
+    m32, g32 = steps.loss_and_grads(model32, params, batch, TrainConfig())
+    del params
+    cos = []
+    for a, b in zip(g16, tree_leaves(g32)):
+        a, b = a.double().flatten(), b.double().flatten()
+        cos.append(float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)))
+    del g16, g32
+    gap = abs(float(m16["loss"]) - float(m32["loss"]))
+    max_gap, min_cos = BF16_BOUNDS[init]
+    row = {"init": init, "loss_bf16": float(m16["loss"]),
+           "loss_fp32": float(m32["loss"]), "loss_gap": gap,
+           "min_leaf_cosine": min(cos), "leaf_cosines": cos,
+           "bounds": {"loss_gap": max_gap, "min_leaf_cosine": min_cos}}
+    log(f"training, bf16 vs fp32 ({init} init, full width, first step, "
+        f"8 x 1024): loss {row['loss_bf16']:.6f} vs {row['loss_fp32']:.6f}, "
+        f"gap {gap:.6f} (bound {max_gap}); lowest per-leaf gradient cosine "
+        f"{min(cos):.6f} (bound {min_cos}); cosines "
+        f"{[round(c, 6) for c in cos]}")
+    assert gap <= max_gap and min(cos) >= min_cos, row
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N per token (forward 2N, backward
+    4N; N all parameters, the tied head counted once) plus causal
+    attention, 6 * layers * heads * head_dim * S per token (QK^T and P.V,
+    2 * 2 * S * heads * head_dim per token forward over the S/2 keys a
+    causal row sees on average, times 3 for the backward)."""
+    n = cfg.num_params()
+    attn = (6 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim
+            * seq)
+    return (6 * n + attn) * tokens
+
+
+def train_trace(torch, run) -> dict:
+    """One more step of the trained state under the profiler (CPU and
+    CUDA activity): the device time of the kernels launched in each of
+    the step's record_function ranges -- forward, backward (its ops run
+    on autograd's device thread, so a kernel is put in the range whose
+    host interval holds its launch), optimizer -- and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import steps
+    step = steps.make_train_step(run.model, run.pcfg, run.tcfg)
+    batch = train_batch(torch, run.cfg, TRAIN_BATCH, TRAIN_SEQ, seed=7,
+                        device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.state, m = step(run.state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    phases = ("forward", "backward", "optimizer")
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in phases:
+            spans[e.name] = (e.time_range.start, e.time_range.end)
+    assert sorted(spans) == sorted(phases), sorted(spans)
+    device = {p: 0.0 for p in phases}
+    busy = 0.0
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name not in phases:
+                busy += e.time_range.elapsed_us()
+                per[e.name] = per.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us()
+        elif e.kernels and e.name not in phases:
+            us = sum(float(k.duration) for k in e.kernels)
+            at = e.time_range.start
+            for p, (a, b) in spans.items():
+                if a <= at <= b:
+                    device[p] += us
+                    break
+    gemm = sum(us for name, us in per.items()
+               if re.search(r"gemm|cutlass|xmma|nvjet|cublas", name, re.I))
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    row = {"wall_us": wall * 1e6, "busy_us": busy,
+           "busy_share": busy / (wall * 1e6), "device_us": device,
+           "host_span_us": {p: b - a for p, (a, b) in spans.items()},
+           "gemm_us": gemm, "top_kernels_us": top,
+           "loss": float(m["loss"])}
+    log(f"trace of one llama3.2-1b train step (8 x 1024, profiler on): "
+        f"wall_us={wall * 1e6:.3f} device_busy_us={busy:.3f} "
+        f"device_busy_share={row['busy_share']:.6f} "
+        + " ".join(f"{p}_device_us={device[p]:.3f}" for p in phases)
+        + " " + " ".join(f"{p}_host_us={row['host_span_us'][p]:.3f}"
+                         for p in phases)
+        + f" gemm_us={gemm:.3f}; top kernels (us): "
+        + "; ".join(f"{name[:90]} {us:.3f}" for name, us in top))
+    return row
+
+
+def train_checkpoint(torch, run) -> dict:
+    """The run's final checkpoint: its bytes and write seconds, and a
+    restore that equals the state in memory bit for bit."""
+    from repro_torch.models.common import tree_leaves
+    info = run.ckpt.write_log[-1]
+    t0 = time.perf_counter()
+    restored, step = run.ckpt.restore(run.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert step == 30, step
+    pairs = list(zip(tree_leaves(restored), tree_leaves(run.state)))
+    for a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape and a.is_cuda
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+            a.element_size()]
+        assert torch.equal(a.view(bits), b.view(bits)), "restore differs"
+    del restored, pairs
+    row = {"step": info["step"], "bytes": info["bytes"],
+           "write_s": info["write_s"], "snapshot_s": info["snapshot_s"],
+           "restore_s": restore_s, "restore_bit_equal": True}
+    log(f"training checkpoint at step {info['step']}: {info['bytes']} bytes, "
+        f"snapshot {info['snapshot_s']:.3f} s, write {info['write_s']:.3f} s "
+        f"({info['bytes'] / info['write_s'] / 1e9:.3f} GB/s); restore "
+        f"{restore_s:.3f} s, bit for bit equal to the state in memory")
+    return row
+
+
+def train_scan(torch) -> dict:
+    """The training scan (`ssm.chunked_scan`: 256-step chunks, a doubling
+    scan in each) at Hymba's refill shape (B=1, S=2048, Di=3200, N=16,
+    bf16 x): forward, and forward plus backward, against the forward-only
+    kernel at the same shape, and its y against the kernel's."""
+    from repro_torch.models import ssm
+    from repro_torch.kernels.selective_scan.ops import selective_scan_op
+    b, s, di, n = 1, 2048, 3200, 16
+    g = torch.Generator(device="cuda").manual_seed(4)
+    r = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+    x = r(b, s, di).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(r(b, s, di) - 4)
+    a = -torch.exp(r(di, n) * 0.5)
+    bs, cs = r(b, s, n).to(torch.bfloat16), r(b, s, n).to(torch.bfloat16)
+    d = torch.ones(di, device="cuda")
+    with torch.no_grad():
+        y_kernel, _ = selective_scan_op(x, dt, a, bs, cs, d)
+        y_train, _ = ssm.chunked_scan(x, dt, a, bs, cs, d)
+        fwd_ms = event_ms(torch, lambda: ssm.chunked_scan(
+            x, dt, a, bs, cs, d), 5)
+        kernel_ms = event_ms(torch, lambda: selective_scan_op(
+            x, dt, a, bs, cs, d), 20)
+    err = float((y_train.float() - y_kernel.float()).abs().max())
+    scale = float(y_kernel.float().abs().max())
+    assert err <= 2e-2 * max(scale, 1.0), (err, scale)
+    xg = x.detach().requires_grad_()
+    dtg = dt.detach().requires_grad_()
+
+    def fwd_bwd():
+        y, _ = ssm.chunked_scan(xg, dtg, a, bs, cs, d)
+        y.float().sum().backward()
+    both_ms = event_ms(torch, fwd_bwd, 5)
+    row = {"shape": [b, s, di, n], "forward_ms": fwd_ms,
+           "forward_backward_ms": both_ms, "kernel_forward_ms": kernel_ms,
+           "max_abs_err_vs_kernel": err, "y_scale": scale}
+    log(f"training scan (chunked, doubling, 256-step chunks) at B={b} S={s} "
+        f"Di={di} N={n}: forward {fwd_ms:.6f} ms, forward+backward "
+        f"{both_ms:.6f} ms; the forward-only kernel {kernel_ms:.6f} ms; "
+        f"max |y - kernel y| {err:.3e} on |y| up to {scale:.3f}")
+    return row
+
+
+def training_phase(torch, kernels: dict) -> dict:
+    """Trains Llama-3.2-1B at its published config through launch.train
+    (a pilot, one compute unit per step), after the card-vs-CPU and
+    bf16-vs-fp32 checks; then the 100m preset's recovery and options.
+    Every kernel count is set to 0 before and read after: training runs
+    none of the port's kernels (they are forward-only, and the JAX package
+    trains through none of its Pallas kernels)."""
+    import shutil
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    ckpt_root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    cfg = get_config("llama3_2_1b")
+    zero_counts(kernels)
+    card_cpu = train_card_vs_cpu(torch)
+    mixed = {init: train_bf16_vs_fp32(torch, cfg, init)
+             for init in ("fan_in", "trainer")}
+
+    t0 = time.perf_counter()
+    run = train_mod.run(TRAIN_ARGV + ["--ckpt-dir", str(ckpt_root / "full")])
+    wall = time.perf_counter() - t0
+    assert run.cfg == cfg and run.device.type == "cuda"
+    assert len(run.losses) == 30 and all(map(math.isfinite, run.losses))
+    last5 = sum(run.losses[-5:]) / 5
+    assert last5 < run.losses[0], (run.losses[0], last5)
+    steady = run.step_s[1:]                     # the first step warms up
+    med = float(np.median(steady))
+    flops = train_flops(cfg, run.tokens_per_step, TRAIN_SEQ)
+    ckpt = train_checkpoint(torch, run)
+    trace = train_trace(torch, run)
+    full = {"params": cfg.num_params(), "steps": len(run.losses),
+            "tokens_per_step": run.tokens_per_step,
+            "median_step_ms": med * 1e3,
+            "step_ms": [s * 1e3 for s in run.step_s],
+            "tokens_per_s": run.tokens_per_step / med,
+            "model_flops_per_step": flops,
+            "model_flops_share_of_989T": flops / med / PEAK_BF16_FLOPS,
+            "peak_bytes": run.peak_bytes, "first_loss": run.losses[0],
+            "last5_mean_loss": last5, "losses": run.losses,
+            "run_wall_s": wall, "checkpoint": ckpt, "trace": trace}
+    log(f"training llama3.2-1b (published config, {cfg.num_params()} "
+        f"parameters, bf16, fp32 AdamW, remat full) on a pilot: 30 steps "
+        f"of 8 x 1024 in {wall:.3f} s; median step {med * 1e3:.3f} ms "
+        f"(steps 2-30), {run.tokens_per_step / med:.3f} tokens/s, "
+        f"{flops:.6e} model FLOPs a step, "
+        f"{full['model_flops_share_of_989T']:.6f} of 989 TFLOP/s; peak "
+        f"device memory {run.peak_bytes / 1e9:.3f} GB; loss "
+        f"{run.losses[0]:.6f} -> {run.losses[-1]:.6f} (last-5 mean "
+        f"{last5:.6f})")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # recovery and options at the 100m preset
+    small = ["--arch", "llama3_2_1b", "--preset", "100m", "--log-every",
+             "100"]
+    rec_dir = ckpt_root / "recovery"
+    rec = train_mod.run(small + ["--steps", "30", "--ckpt-every", "10",
+                                 "--failure-at", "15", "--ckpt-dir",
+                                 str(rec_dir)])
+    latest = CheckpointManager(rec_dir / rec.cfg.name).latest_step()
+    recovery = {"latest_step": latest, "loss": rec.loss,
+                "steps_run": len(rec.losses)}
+    assert latest == 30 and math.isfinite(rec.loss), recovery
+    options = {}
+    for name, extra in (("int8", ["--opt-dtype", "int8"]),
+                        ("microbatches_2", ["--microbatches", "2"])):
+        r = train_mod.run(small + ["--steps", "4", "--ckpt-dir",
+                                   str(ckpt_root / name)] + extra)
+        assert math.isfinite(r.loss), (name, r.loss)
+        options[name] = r.loss
+    launches = read_counts(kernels)
+    assert not any(launches.values()), ("training launched a kernel",
+                                        launches)
+    log(f"training 100m preset: --failure-at 15 of 30 steps recovered, "
+        f"latest checkpoint step {latest}, final loss {rec.loss:.6f}; "
+        f"int8 state loss {options['int8']:.6f}, 2 microbatches loss "
+        f"{options['microbatches_2']:.6f}; kernel launches in training "
+        f"{launches}")
+    del rec, r
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan = train_scan(torch)
+    return {"card_vs_cpu": card_cpu, "bf16_vs_fp32": mixed, "full": full,
+            "recovery": recovery,
+            "options": options, "launches": launches, "scan": scan}
+
+
 def main() -> int:
     import torch
 
@@ -1736,6 +2111,20 @@ def main() -> int:
     gc.collect()             # the closed session's runtime, held in cycles
     torch.cuda.empty_cache()
 
+    # -- 6b. training Llama-3.2-1B at its published config ------------------
+    all_kernels = {"kmeans_assign": (kernel_mod, "LAUNCHES"),
+                   "decode_attention": (attn_mod, "LAUNCHES"),
+                   "decode_attention_tc": (attn_mod, "TC_LAUNCHES"),
+                   "decode_attention_core": (attn_mod, "CORE_LAUNCHES"),
+                   "flash_attention": (flash_mod, "TC_LAUNCHES"),
+                   "flash_attention_fp32": (flash_mod, "LAUNCHES"),
+                   "selective_scan": (scan_mod, "LAUNCHES")}
+    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
+    training = training_phase(torch, all_kernels)
+    train_launches = training["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 7. the serving path: Hymba-1.5B at full width ------------------------
     hcfg = get_config("hymba_1_5b")
     t0 = time.perf_counter()
@@ -1906,11 +2295,20 @@ def main() -> int:
             ("internvl2_2b serving", vserve),
             ("mixtral_8x22b serving", mserve),
             ("whisper_base serving", wserve),
-            ("deepseek_v3_671b serving", dserve))}
+            ("deepseek_v3_671b serving", dserve))} | {
+        "llama3_2_1b training": train_launches[name]}
+    for name in ("kmeans_assign", "decode_attention", "flash_attention",
+                 "selective_scan"):
+        assert train_launches[name] == 0, (name, train_launches)
     log(card)
+    log(json.dumps({"training": training}))
     log(json.dumps({"kernels": [{
         "name": "kmeans_assign", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches_total, "checked": True,
+        "replaces": REPLACES, "launches": launches_total,
+        "launches_by_path": {
+            "kmeans main path": launches_total,
+            "llama3_2_1b training": train_launches["kmeans_assign"]},
+        "checked": True,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_us"] / 1e3, "bound_by": head["bound_by"],

@@ -3,12 +3,15 @@
 ``impl="auto"`` dispatches on the tensor's device: a CUDA tensor launches
 the hand-written kernel (decode_attention.py), a CPU tensor runs the plain
 PyTorch version (ref.py).  ``impl="cuda"`` on a CPU tensor raises.  There
-is no fallback from a failed build or launch to the plain version.
+is no fallback from a failed build or launch to the plain version.  The
+op is forward-only: it raises on an argument that requires grad while
+grad mode is on (``kernels.refuse_autograd``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.decode_attention.decode_attention import \
     decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -24,6 +27,8 @@ def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
     -> (B,Nq,H).
 
     impl: auto | cuda | ref"""
+    refuse_autograd("decode_attention_op", q, k_cache, v_cache, cache_pos,
+                    positions)
     if impl not in IMPLS:
         raise ValueError(f"decode_attention_op: impl must be one of "
                          f"{IMPLS}, got {impl!r}")

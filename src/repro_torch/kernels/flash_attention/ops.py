@@ -3,12 +3,15 @@
 ``impl="auto"`` dispatches on the tensor's device: a CUDA tensor launches
 the hand-written kernel (flash_attention.py), a CPU tensor runs the plain
 PyTorch version (ref.py).  ``impl="cuda"`` on a CPU tensor raises.  There
-is no fallback from a failed build or launch to the plain version.
+is no fallback from a failed build or launch to the plain version.  The
+op is forward-only: it raises on an argument that requires grad while
+grad mode is on (``kernels.refuse_autograd``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -22,6 +25,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,Sq,Nq,H); k, v (B,Skv,Nkv,H) -> (B,Sq,Nq,H).
 
     impl: auto | cuda | ref"""
+    refuse_autograd("flash_attention_op", q, k, v)
     if impl not in IMPLS:
         raise ValueError(f"flash_attention_op: impl must be one of {IMPLS}, "
                          f"got {impl!r}")

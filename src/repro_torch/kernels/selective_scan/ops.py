@@ -3,7 +3,9 @@
 ``impl="auto"`` dispatches on the tensor's device: a CUDA tensor launches
 the hand-written kernel (selective_scan.py), a CPU tensor runs the plain
 PyTorch version (ref.py).  ``impl="cuda"`` on a CPU tensor raises.  There
-is no fallback from a failed build or launch to the plain version.
+is no fallback from a failed build or launch to the plain version.  The
+op is forward-only: it raises on an argument that requires grad while
+grad mode is on (``kernels.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.selective_scan.selective_scan import selective_scan
 
@@ -26,6 +29,8 @@ def selective_scan_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     h0 (B,Di,N) or None -> (y (B,S,Di), h_end (B,Di,N) fp32).
 
     impl: auto | cuda | ref"""
+    refuse_autograd("selective_scan_op", x, dt, a, b_ssm, c_ssm, d_skip,
+                    h0)
     if impl not in IMPLS:
         raise ValueError(f"selective_scan_op: impl must be one of {IMPLS}, "
                          f"got {impl!r}")

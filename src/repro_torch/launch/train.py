@@ -1,8 +1,17 @@
-"""Model presets for the port's launchers.
+"""End-to-end training on the Pilot stack.
 
-For now this module holds only ``PRESETS`` and ``scaled_config``, copied
-from ``repro/launch/train.py`` (which imports JAX), so that the serving CLI
-can size a model; the training CLI comes with the training slice.
+    python -m repro_torch.launch.train --arch llama3_2_1b --preset 100m \\
+        --steps 300 --batch 8 --seq 512
+
+The port of ``repro/launch/train.py``.  Flow (paper Fig. 3): the corpus
+lives as a file-tier DataUnit -> staged to the host tier by the pipeline
+-> batches feed the train step, run as one compute unit per step on a
+PilotCompute that keeps the step (``jit_cached``) across the whole run ->
+checkpoints write back to the persistent tier asynchronously.
+``--failure-at`` releases the pilot at that step (a simulated pilot loss),
+submits a new one and restarts from the last checkpoint.  It runs on the
+card unless ``--device cpu`` is given; ``main()`` returns the final loss,
+``run()`` the whole record of the run.
 
 Presets scale the *width/depth* of the chosen architecture family while
 keeping its structure (GQA ratios, MoE top-k, SSM dims), so every assigned
@@ -11,10 +20,28 @@ config (full).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
+import tempfile
+import time
+from pathlib import Path
+from typing import Any, List, Optional
 
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import (ModelConfig, ParallelConfig,
+                                      TrainConfig, reduced)
+from repro_torch.core import (ComputeDataManager, PilotComputeDescription,
+                              PilotComputeService, make_backend,
+                              resolve_device, to_device)
+from repro_torch.data.pipeline import BatchPipeline, corpus_data_unit
+from repro_torch.models.common import tree_leaves
+from repro_torch.models.model import Model, build_model
+from repro_torch.train import steps as steps_mod
 
 PRESETS = {
     "smoke": dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
@@ -57,3 +84,148 @@ def scaled_config(arch: str, preset: str) -> ModelConfig:
         over["sliding_window"] = min(cfg.sliding_window, 256)
     over["name"] = f"{cfg.name}-{preset}"
     return dataclasses.replace(cfg, **over)
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What one `run` did: the final state and the record of each step."""
+    cfg: ModelConfig
+    model: Model
+    pcfg: ParallelConfig
+    tcfg: TrainConfig
+    device: torch.device
+    state: Any                      # the final TrainState
+    ckpt: CheckpointManager         # its write_log holds each save
+    losses: List[float]             # per step run (a restart repeats some;
+    #                                 nan alone where no step ran)
+    step_s: List[float]             # host seconds per step, synchronised
+    peak_bytes: Optional[int]       # max_memory_allocated (the card only)
+    tokens_per_step: int
+
+    @property
+    def loss(self) -> float:
+        return self.losses[-1]
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3_2_1b")
+    ap.add_argument("--preset", default="100m", choices=list(PRESETS))
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--opt-dtype", default="float32",
+                    choices=["float32", "bfloat16", "int8"])
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--failure-at", type=int, default=0,
+                    help="inject a pilot failure at this step (demo)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def run(argv=None) -> TrainRun:
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = scaled_config(args.arch, args.preset)
+    model = build_model(cfg)
+    n_params = sum(int(np.prod(s.shape)) for s in tree_leaves(model.specs))
+    print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, device={dev}")
+
+    # --- pilot: retained resources for the whole run ---
+    svc = PilotComputeService()
+    desc = PilotComputeDescription(backend="inprocess", num_devices=1,
+                                   affinity="trainer", device=dev)
+    pilot = svc.submit_pilot(desc)
+    manager = ComputeDataManager(svc)
+
+    # --- data: file tier -> host tier -> batches ---
+    backends = {"file": make_backend("file", root=str(Path(args.ckpt_dir)
+                                                      / "corpus")),
+                "host": make_backend("host")}
+    du = corpus_data_unit("corpus", cfg,
+                          num_tokens=max(2_000_000, 4 * args.batch
+                                         * (args.seq + 1) * 16),
+                          backends=backends, tier="file")
+    du.to_tier("host", delete_source=False)
+    pipe = BatchPipeline(du, cfg, args.batch, args.seq)
+
+    pcfg = ParallelConfig(microbatches=args.microbatches,
+                          opt_state_dtype=args.opt_dtype)
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                       warmup_steps=max(10, args.steps // 20))
+    build_step = lambda: steps_mod.make_train_step(model, pcfg, tcfg)
+    step_fn = pilot.jit_cached(("train_step", cfg.name), build_step)
+    state = steps_mod.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(tcfg.seed), pcfg,
+        device=dev)
+    ckpt = CheckpointManager(Path(args.ckpt_dir) / cfg.name)
+
+    start = 0
+    if ckpt.latest_step() is not None:
+        state, start = ckpt.restore(state)
+        print(f"[train] restored step {start}")
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses: List[float] = []
+    t_hist: List[float] = []
+    failed_once = False
+    step = start
+    try:
+        while step < args.steps:
+            batch = {k: to_device(v, dev) for k, v in next(pipe).items()}
+            if args.failure_at and step == args.failure_at and not failed_once:
+                failed_once = True
+                print(f"[train] !!! injecting pilot failure at step {step}")
+                svc.release(pilot)
+                pilot = svc.submit_pilot(desc)
+                step_fn = pilot.jit_cached(("train_step", cfg.name),
+                                           build_step)
+                state, step = ckpt.restore(state)
+                print(f"[train] recovered at step {step}")
+                continue
+            t0 = time.perf_counter()
+            cu = manager.run(lambda s=state, b=batch: step_fn(s, b),
+                             affinity="trainer")
+            state, metrics = cu.result()
+            losses.append(float(metrics["loss"]))       # waits for the step
+            dt = time.perf_counter() - t0
+            t_hist.append(dt)
+            step += 1
+            if step % args.log_every == 0 or step == 1:
+                mem = (f" peak={torch.cuda.max_memory_allocated(dev)/1e9:.2f}GB"
+                       if dev.type == "cuda" else "")
+                print(f"[train] step {step:5d} loss={losses[-1]:.4f} "
+                      f"gnorm={float(metrics['grad_norm']):.3f} "
+                      f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms{mem}")
+            if step % args.ckpt_every == 0:
+                ckpt.save(step, state, blocking=False)
+        ckpt.save(args.steps, state, blocking=True)
+    finally:
+        pipe.close()
+        svc.cancel_all()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    med = float(np.median(t_hist)) if t_hist else 0.0
+    tokens_s = args.batch * args.seq / med if med else 0.0
+    if not losses:          # restored at the last step: nothing to run
+        losses.append(float("nan"))
+    print(f"[train] done: median step {med*1e3:.0f}ms, {tokens_s:.0f} tok/s, "
+          f"final loss {losses[-1]:.4f}"
+          + (f", peak device memory {peak/1e9:.2f}GB" if peak else ""))
+    return TrainRun(cfg=cfg, model=model, pcfg=pcfg, tcfg=tcfg, device=dev,
+                    state=state, ckpt=ckpt, losses=losses, step_s=t_hist,
+                    peak_bytes=peak, tokens_per_step=args.batch * args.seq)
+
+
+def main(argv=None) -> float:
+    """Train as the flags say; returns the final loss."""
+    return run(argv).loss
+
+
+if __name__ == "__main__":
+    main()

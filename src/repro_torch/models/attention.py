@@ -30,12 +30,22 @@ cast to V's dtype before P.V, ``MLA_CHUNK`` query rows at a time).  Its
 decode caches the compressed latent (kv_lora_rank + rope_dim per token,
 slot pos % max_len, no window) and uses the absorbed-matmul trick, which
 is the point of MLA's serving efficiency.
+
+Training (``train=True``, passed down from ``Model.train_forward``) never
+reaches a kernel: the flash kernel is forward-only (its op refuses inputs
+that require grad), and the JAX package trains through jnp
+`_attend_chunked`.  GQA, encoder and cross attention then attend in
+`_attend_chunked` at the reference's ``TRAIN_CHUNK`` query rows, MLA at
+``MLA_CHUNK``, each chunk checkpointed: its scores and probabilities are
+recomputed in the backward pass, as the reference's
+``jax.checkpoint(body)`` does.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention_op
@@ -49,6 +59,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 # DeepSeek-V3's 128 heads, B=8 and 1024 keys, 256 rows are 1.07 GB (the
 # JAX package's 1024 would be 4.3 GB, twice over for the softmax).
 MLA_CHUNK = 256
+# query rows per chunk of the training attention (the JAX package's)
+TRAIN_CHUNK = 1024
 
 
 def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -73,14 +85,19 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def gqa_forward(params, x, *, cfg: ModelConfig, positions,
-                window: int) -> torch.Tensor:
-    """Full-sequence (prefill) GQA with RoPE.  `positions` must be
+                window: int, train: bool = False) -> torch.Tensor:
+    """Full-sequence (train / prefill) GQA with RoPE.  `positions` must be
     ``arange(S)`` in every row (``model._positions``): the attention
     kernel places query and kv row i at position i."""
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
-    out = flash_attention_op(q, k, v, causal=True, window=window)
+    if train:
+        out = _attend_train(q, k, v, q_positions=positions,
+                            kv_positions=positions, causal=True,
+                            window=window)
+    else:
+        out = flash_attention_op(q, k, v, causal=True, window=window)
     return _out_proj(out, params["wo"])
 
 
@@ -144,30 +161,53 @@ def gqa_decode(params, x, cache, *, cfg: ModelConfig, positions,
     return _out_proj(out, params["wo"]), cache
 
 
+def _attend_chunk(qc, qp, k32, v, kv_positions, causal: bool, window: int):
+    """One query chunk of `_attend_chunked`."""
+    # out of place: remat="dots" keeps the product itself for the
+    # backward pass, so it must not be written over
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qc.float(), k32) * (
+        qc.shape[-1] ** -0.5)
+    rel = qp[:, :, None] - kv_positions[:, None, :]
+    mask = torch.ones_like(rel, dtype=torch.bool)        # (B,c,Skv)
+    if causal:
+        mask &= rel >= 0
+    if window:
+        mask &= rel < window
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+
+
 def _attend_chunked(q, k, v, *, q_positions, kv_positions, causal: bool,
-                    window: int, chunk: int) -> torch.Tensor:
+                    window: int, chunk: int,
+                    remat: bool = False) -> torch.Tensor:
     """q: (B,S,nkv,g,hd); k: (B,Skv,nkv,hd); v: (B,Skv,nkv,vd) ->
     (B,S,nkv,g,vd).  Per query chunk: fp32 scores (the JAX package's
     ``preferred_element_type``) scaled by hd**-0.5, the causal/window mask
     from the positions, an fp32 softmax, the probabilities cast to v's
-    dtype before P.V."""
-    hd = q.shape[-1]
+    dtype before P.V.  With `remat`, each chunk is checkpointed."""
     k32 = k.float()
     outs = []
     for a in range(0, q.shape[1], chunk):
-        qc = q[:, a:a + chunk].float()
-        scores = torch.einsum("bqkgd,bskd->bkgqs", qc, k32).mul_(hd ** -0.5)
-        rel = q_positions[:, a:a + chunk, None] - kv_positions[:, None, :]
-        mask = torch.ones_like(rel, dtype=torch.bool)    # (B,c,Skv)
-        if causal:
-            mask &= rel >= 0
-        if window:
-            mask &= rel < window
-        scores.masked_fill_(~mask[:, None, None], NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        del scores
-        outs.append(torch.einsum("bkgqs,bskd->bqkgd", probs, v))
+        args = (q[:, a:a + chunk], q_positions[:, a:a + chunk], k32, v,
+                kv_positions, causal, window)
+        outs.append(checkpoint(_attend_chunk, *args, use_reentrant=False)
+                    if remat else _attend_chunk(*args))
     return torch.cat(outs, dim=1)
+
+
+def _attend_train(q, k, v, *, q_positions, kv_positions, causal: bool,
+                  window: int = 0) -> torch.Tensor:
+    """q (B,S,nq,hd); k, v (B,Skv,nkv,hd) -> (B,S,nq,hd): the training
+    route, `_attend_chunked` at ``TRAIN_CHUNK`` rows, chunks checkpointed."""
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    out = _attend_chunked(q.reshape(b, s, nkv, nq // nkv, hd), k, v,
+                          q_positions=q_positions, kv_positions=kv_positions,
+                          causal=causal, window=window, chunk=TRAIN_CHUNK,
+                          remat=True)
+    return out.reshape(b, s, nq, v.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -211,12 +251,13 @@ def _mla_qkv_latent(params, x, *, cfg: ModelConfig, positions):
 
 
 def mla_forward(params, x, *, cfg: ModelConfig, positions,
-                chunk: int = MLA_CHUNK, return_cache: bool = False):
-    """Prefill MLA: the latent expanded to per-head K/V, causal attention
-    with the scale of the full QK head width, (qk_nope + qk_rope)**-0.5.
-    `positions` is ``arange(S)`` in every row.  With `return_cache`,
-    returns (y, (c_kv, k_rope)), the decode cache's entries from the same
-    projection."""
+                chunk: int = MLA_CHUNK, return_cache: bool = False,
+                train: bool = False):
+    """Train / prefill MLA: the latent expanded to per-head K/V, causal
+    attention with the scale of the full QK head width, (qk_nope +
+    qk_rope)**-0.5; with `train`, each chunk is checkpointed.  With
+    `return_cache`, returns (y, (c_kv, k_rope)), the decode cache's
+    entries from the same projection."""
     m = cfg.mla
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(params, x, cfg=cfg,
                                                    positions=positions)
@@ -227,7 +268,7 @@ def mla_forward(params, x, *, cfg: ModelConfig, positions,
         k_nope.shape[:3] + (m.qk_rope_head_dim,))], dim=-1)
     out = _attend_chunked(q[:, :, :, None, :], k, v, q_positions=positions,
                           kv_positions=positions, causal=True, window=0,
-                          chunk=chunk)                   # g=1 (nkv == nq)
+                          chunk=chunk, remat=train)      # g=1 (nkv == nq)
     y = _out_proj(out[..., 0, :], params["wo"])
     return (y, (c_kv, k_rope)) if return_cache else y
 
@@ -277,20 +318,33 @@ def mla_decode(params, x, cache, *, cfg: ModelConfig, positions):
 # Bidirectional (encoder) + cross attention, for the enc-dec (whisper) family
 # ---------------------------------------------------------------------------
 
-def encoder_attention(params, x, *, cfg: ModelConfig, positions):
+def encoder_attention(params, x, *, cfg: ModelConfig, positions,
+                      train: bool = False):
     """Bidirectional GQA with RoPE over the encoder's frames."""
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
-    out = flash_attention_op(q, k, v, causal=False)
+    if train:
+        out = _attend_train(q, k, v, q_positions=positions,
+                            kv_positions=positions, causal=False)
+    else:
+        out = flash_attention_op(q, k, v, causal=False)
     return _out_proj(out, params["wo"])
 
 
-def cross_attention(params, x, enc_k, enc_v, *, cfg: ModelConfig):
+def cross_attention(params, x, enc_k, enc_v, *, cfg: ModelConfig,
+                    train: bool = False):
     """x: (B,S,d) decoder side (the prompt, or one decode token); enc_k,
     enc_v: (B,T,nkv,hd) precomputed (`cross_kv`).  No RoPE, no mask."""
     q = _project(x, params["wq"])
-    out = flash_attention_op(q, enc_k, enc_v, causal=False)
+    if train:
+        b, s, t = x.shape[0], x.shape[1], enc_k.shape[1]
+        zeros = lambda n: torch.zeros((b, n), dtype=torch.int32,
+                                      device=x.device)
+        out = _attend_train(q, enc_k, enc_v, q_positions=zeros(s),
+                            kv_positions=zeros(t), causal=False)
+    else:
+        out = flash_attention_op(q, enc_k, enc_v, causal=False)
     return _out_proj(out, params["wo"])
 
 

@@ -6,8 +6,8 @@ logical axes + initializer + dtype); ``init_params`` materializes it on a
 device from an explicit ``torch.Generator``.  The math keeps the JAX
 package's casts: fp32 inside the norm, RoPE and the activation, then back
 to the activation dtype.  ``with_logical_constraint`` has no counterpart
-(it is a no-op without a mesh), and the loss comes with the training
-slice.
+(it is a no-op without a mesh).  ``cross_entropy_loss`` is the training
+loss: an fp32 log-sum-exp with the optional z-loss and mask.
 """
 from __future__ import annotations
 
@@ -33,24 +33,51 @@ class ParamSpec:
                              f"axes {self.logical} differ in rank")
 
 
-def tree_map(fn, tree):
-    """Apply `fn` to every leaf of a tree of dicts (keys in sorted order,
-    the order ``jax.tree_util`` walks a dict in), tuples and lists (each
-    kept as its own type)."""
+def tree_node(tree):
+    """(children, rebuild) of a tree node, or None for a leaf: a dict (its
+    keys in sorted order, the order ``jax.tree_util`` walks a dict in), a
+    named tuple (its fields in order), a tuple or list (each kept as its
+    own type), or an object with ``tree_flatten``/``tree_unflatten`` (a
+    pytree node class, as ``optim.quant.QTensor``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+        keys = sorted(tree)
+        return [tree[k] for k in keys], lambda ch: dict(zip(keys, ch))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(tree), lambda ch: type(tree)(*ch)
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, t) for t in tree)
-    return fn(tree)
+        return list(tree), type(tree)
+    if hasattr(tree, "tree_flatten"):
+        children, aux = tree.tree_flatten()
+        return list(children), lambda ch: type(tree).tree_unflatten(aux, ch)
+    return None
 
 
-def tree_leaves(tree) -> list:
-    """Leaves of a tree of dicts (sorted keys), tuples and lists."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (tuple, list)):
-        return [x for t in tree for x in tree_leaves(t)]
-    return [tree]
+def tree_map(fn, tree, is_leaf=None):
+    """Apply `fn` to every leaf of a tree (see `tree_node`); `is_leaf(x)` true
+    stops the walk at x and hands it to `fn` whole."""
+    node = None if is_leaf is not None and is_leaf(tree) else tree_node(tree)
+    if node is None:
+        return fn(tree)
+    children, rebuild = node
+    return rebuild([tree_map(fn, c, is_leaf) for c in children])
+
+
+def tree_leaves(tree, is_leaf=None) -> list:
+    """The leaves of a tree in `tree_map`'s order."""
+    node = None if is_leaf is not None and is_leaf(tree) else tree_node(tree)
+    if node is None:
+        return [tree]
+    return [x for c in node[0] for x in tree_leaves(c, is_leaf)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped as `like` whose leaves, in `tree_leaves` order, are
+    `leaves`."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
 
 
 def stack_specs(tree, num: int, logical: str = "layers"):
@@ -157,3 +184,23 @@ def dense_ffn(x: torch.Tensor, ffn_params, act: str = "swiglu"):
     u = linear(x, ffn_params["w_up"])
     h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
     return linear(h, ffn_params["w_down"])
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """logits (B,S,V) [bf16 ok], labels (B,S) int -> the mean token NLL
+    (over `mask`'s weight where given), an fp32 log-sum-exp; `z_loss`
+    adds z_loss * lse**2 per token."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = float(np.prod(labels.shape))
+    return nll.sum() / denom

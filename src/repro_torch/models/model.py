@@ -2,6 +2,7 @@
 
   specs                          parameter ParamSpec tree
   init(generator, device=None)   materialize params (on the card by default)
+  train_forward(p, batch)        -> {"logits", "aux", ["mtp_logits"]}
   prefill(p, batch, max_len)     -> (last_logits, cache)
   decode(p, cache, tokens, positions) -> (logits, cache), cache in place
   cache_spec(batch, max_len)     -> tree of (shape, logical_axes)
@@ -9,7 +10,10 @@
 
 The port of ``repro/models/model.py``, for every family of
 ``repro_torch.configs``.  Prefill and decode run under
-``torch.inference_mode()``.  Cache layouts follow the JAX package:
+``torch.inference_mode()``; ``train_forward`` runs the training routes
+(``train=True``: no kernel, layers checkpointed by ``cfg.remat``) under
+whatever grad mode its caller set, and keeps no tensor across calls.
+Cache layouts follow the JAX package:
 - the dense, MoE, vision and SSM families stack their layers' caches,
   ``{"main": {"kv": {"k","v","pos"}}}`` and ``{"main": {"ssm":
   {"conv","ssm"}}}`` with a leading layer axis, and a config with
@@ -30,9 +34,8 @@ A vision config prepends the projected patch embeddings
 sits at sequence position Nv + t.  Decode walks the layers in a Python
 loop and writes each layer's cache in place (``_scan_decode`` in the JAX
 package carries the cache through a scan for the same reason), so
-`decode` returns the very cache objects it was given.  Training
-(``train_forward``, which alone runs DeepSeek-V3's multi-token
-prediction) comes with the training slice.
+`decode` returns the very cache objects it was given.  Only
+``train_forward`` runs DeepSeek-V3's multi-token prediction.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ class Model:
     cfg: ModelConfig
     specs: Dict[str, Any]
     init: Callable
+    train_forward: Callable
     prefill: Callable
     decode: Callable
     cache_spec: Callable
@@ -154,6 +158,33 @@ def build_model(cfg: ModelConfig) -> Model:
     def init(generator: torch.Generator, device: DeviceLike = None):
         return init_params(specs, generator, resolve_device(device))
 
+    def train_forward(params, batch):
+        dtype = getattr(torch, cfg.dtype)
+        if cfg.encoder_layers:
+            enc_out = tfm.encoder_forward(params, batch["frames"].to(dtype),
+                                          cfg, train=True)
+            x = tfm.embed_tokens(params, batch["tokens"], cfg)
+            pos = _positions(*x.shape[:2], x.device)
+            x, _ = tfm.encdec_decoder_forward(params, x, enc_out, cfg,
+                                              positions=pos, train=True)
+            return {"logits": tfm.lm_logits(params, x, cfg),
+                    "aux": torch.zeros((), dtype=torch.float32,
+                                       device=x.device)}
+        x, pos = _embed_inputs(params, batch, cfg)
+        h, aux, _ = tfm.decoder_forward(params, x, cfg, positions=pos,
+                                        train=True)
+        out = {"aux": torch.as_tensor(aux, dtype=torch.float32,
+                                      device=x.device)}
+        if cfg.vision_tokens:
+            h = h[:, cfg.vision_tokens:]
+            pos = pos[:, cfg.vision_tokens:]
+        out["logits"] = tfm.lm_logits(params, h, cfg)
+        if cfg.mtp_depth:
+            nxt = torch.roll(batch["tokens"], -1, dims=1)
+            out["mtp_logits"] = tfm.mtp_forward(params, h, nxt, cfg,
+                                                positions=pos)
+        return out
+
     def encdec_prefill(params, batch, max_len: int):
         enc_out = tfm.encoder_forward(
             params, batch["frames"].to(getattr(torch, cfg.dtype)), cfg)
@@ -241,5 +272,6 @@ def build_model(cfg: ModelConfig) -> Model:
                                         cfg.sliding_window)
                 for name, _, n in tfm.stacks(cfg)}
 
-    return Model(cfg=cfg, specs=specs, init=init, prefill=prefill,
+    return Model(cfg=cfg, specs=specs, init=init,
+                 train_forward=train_forward, prefill=prefill,
                  decode=decode, cache_spec=cache_spec)

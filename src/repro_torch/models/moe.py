@@ -150,8 +150,11 @@ def moe_ffn(params, x: torch.Tensor,
     # expert computation (SwiGLU), one batched product per matrix
     gt = torch.bmm(buf, params["w_gate"].to(x.dtype))
     up = torch.bmm(buf, params["w_up"].to(x.dtype))
-    # silu in place on the fp32 copy: at a Mixtral prefill wave gt is 3 GB
-    h = F.silu(gt.float(), inplace=True).to(x.dtype) * up
+    # silu in place on the fp32 copy: at a Mixtral prefill wave gt is 3 GB.
+    # An fp32 gt is not copied, and stays as it is: remat="dots" keeps
+    # the product itself for the backward pass
+    g32 = gt.float()
+    h = F.silu(g32, inplace=g32 is not gt).to(x.dtype) * up
     y = torch.bmm(h, params["w_down"].to(x.dtype))         # (E, B*C, D)
     y = y.reshape(ne, b, cap, d).transpose(0, 1).reshape(b, ne * cap, d)
 

@@ -1,14 +1,16 @@
-"""Mamba-1 selective SSM block: full-sequence scan (prefill) and
+"""Mamba-1 selective SSM block: full-sequence scan (train / prefill) and
 single-token recurrence (decode).
 
 The port of ``repro/models/ssm.py``.  The prefill scan goes through
 ``selective_scan_op``, which launches the hand-written CUDA kernel
 (``kernels/selective_scan``) on a CUDA tensor and runs its plain version on
 a CPU tensor; the JAX package runs a chunked associative scan in jnp here
-and holds its Pallas kernel to the same recurrence.  Decode is one step of
-the recurrence in plain torch, as in the JAX package, and writes the conv
-history and the state into the cache in place.  ``with_logical_constraint``
-has no counterpart (it is a no-op without a mesh).
+and holds its Pallas kernel to the same recurrence.  Training
+(``train=True``) runs that chunked scan, `chunked_scan`: the kernel is
+forward-only.  Decode is one step of the recurrence in plain torch, as in
+the JAX package, and writes the conv history and the state into the cache
+in place.  ``with_logical_constraint`` has no counterpart (it is a no-op
+without a mesh).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.selective_scan.ops import selective_scan_op
@@ -80,12 +83,67 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         d_skip.float().contiguous(), None if h0 is None else h0.float())
 
 
+# time steps per chunk of the training scan (the JAX package's)
+SCAN_CHUNK = 256
+
+
+def _chunk_scan(da: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
+    """h_t = da_t * h_{t-1} + bx_t within one chunk, h_{-1} = h0, as a
+    doubling (Hillis-Steele) scan with the JAX package's ``combine``:
+    log2(c) steps, each combining every step with the one `off` before it.
+
+    da, bx: (B, c, di, n); h0: (B, di, n).  Returns (states, h_end)."""
+    # fold the incoming state into the first step
+    a, b = da, torch.cat([bx[:, :1] + da[:, :1] * h0[:, None], bx[:, 1:]], 1)
+    off = 1
+    while off < a.shape[1]:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], 1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], 1)
+        off *= 2
+    return b, b[:, -1]
+
+
+def _scan_chunk(h, xc, dtc, bc, cc, a, scan_dtype):
+    """One chunk of `chunked_scan` -> (h_end fp32, y in xc's dtype)."""
+    da = torch.exp(dtc[..., None] * a[None, None])           # (B,c,di,n)
+    bx = (dtc * xc)[..., None] * bc[:, :, None, :]            # (B,c,di,n)
+    states, h_end = _chunk_scan(da.to(scan_dtype), bx.to(scan_dtype),
+                                h.to(scan_dtype))
+    y = torch.einsum("bcdn,bcn->bcd", states, cc.to(scan_dtype))
+    return h_end.float(), y.to(xc.dtype)
+
+
+def chunked_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b_ssm: torch.Tensor, c_ssm: torch.Tensor,
+                 d_skip: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                 chunk: int = SCAN_CHUNK, scan_dtype="float32"):
+    """The training scan: x, dt (B,S,di); a (di,n); b_ssm, c_ssm (B,S,n) ->
+    (y (B,S,di) in x's dtype, h_end (B,di,n) fp32), as the JAX package's
+    ``selective_scan``.  `chunk` steps at a time, each chunk checkpointed
+    (recomputed in the backward pass) with the state carried between
+    chunks in fp32; inside a chunk the operands are cast to `scan_dtype`.
+    D*x is added in x's dtype, as the reference adds it (the kernel sums
+    it in fp32)."""
+    bsz, s, di = x.shape
+    sd = getattr(torch, scan_dtype)
+    h = (torch.zeros((bsz, di, a.shape[-1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    dt, b_ssm, c_ssm = dt.float(), b_ssm.float(), c_ssm.float()
+    ys = []
+    for t in range(0, s, chunk):
+        sl = slice(t, t + chunk)
+        h, y = checkpoint(_scan_chunk, h, x[:, sl], dt[:, sl], b_ssm[:, sl],
+                          c_ssm[:, sl], a, sd, use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, 1) + x * d_skip.to(x.dtype), h
+
+
 def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
                   state: Optional[Dict[str, torch.Tensor]] = None,
-                  return_state: bool = False):
+                  return_state: bool = False, train: bool = False):
     """Full-sequence mamba block. x: (B,S,d). Optionally carries/returns
     state {"conv": (B,k-1,di), "ssm": (B,di,n)} for the prefill->decode
-    handoff."""
+    handoff.  `train` scans with `chunked_scan`, else with the kernel."""
     s_cfg = cfg.ssm
     dtr = s_cfg.resolved_dt_rank(cfg.d_model)
     n = s_cfg.state_dim
@@ -103,8 +161,9 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     a = -torch.exp(params["a_log"])
 
     h0 = state["ssm"] if state is not None else None
-    y, h_end = selective_scan(xc, dt, a, b_ssm, c_ssm, params["d_skip"],
-                              h0=h0, scan_dtype=s_cfg.scan_dtype)
+    scan = chunked_scan if train else selective_scan
+    y, h_end = scan(xc, dt, a, b_ssm, c_ssm, params["d_skip"], h0=h0,
+                    scan_dtype=s_cfg.scan_dtype)
     y = y * F.silu(z.float()).to(x.dtype)
     out = linear(y, params["w_out"])
     if return_state:

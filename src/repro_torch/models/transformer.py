@@ -14,16 +14,24 @@ a vision config adds the projector (``proj1``, ``proj2``) that
 ``models/model.py`` applies to the patch embeddings; an enc-dec config
 has an encoder stack (``enc_layers``, ``enc_norm``) and decoder layers
 with cross attention (``norm_x``, ``xattn``).  DeepSeek-V3's
-multi-token-prediction module (``mtp``) is in the parameter tree, as in
-the JAX package, but nothing here runs it: only training reads it.
-Nothing here is differentiated, so there is no remat; the MoE aux loss
-is summed and returned, and the serving stack drops it.
+multi-token-prediction module (``mtp``) runs in training only
+(`mtp_forward`).  The MoE aux loss is summed and returned; the serving
+stack drops it.
+
+``train=True`` (from ``Model.train_forward``) selects the differentiable
+attention and scan routes and checkpoints each layer by ``cfg.remat``, as
+the JAX package's ``jax.checkpoint`` of its scanned layer body: "full"
+recomputes the layer in the backward pass, "dots" saves its matmul
+outputs and recomputes the rest (``checkpoint_dots``), "none" saves all.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -173,7 +181,8 @@ def _ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  positions, window: int, need_cache: bool = False):
+                  positions, window: int, need_cache: bool = False,
+                  train: bool = False):
     """Full-sequence layer.  Returns (x, MoE aux loss or 0, the attention
     cache's entries -- (k, v) for GQA, (c_kv, k_rope) for MLA -- or None,
     ssm state or None); the caches only with `need_cache`."""
@@ -182,7 +191,7 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     branch = 0.0
     if cfg.attention == "gqa":
         a = attn.gqa_forward(lp["attn"], h, cfg=cfg, positions=positions,
-                             window=window)
+                             window=window, train=train)
         if cfg.parallel_ssm:
             a = rms_norm(a, lp["attn_norm"], cfg.norm_eps)
         branch = branch + a
@@ -191,7 +200,7 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                            positions=positions)
     elif cfg.attention == "mla":
         a = attn.mla_forward(lp["attn"], h, cfg=cfg, positions=positions,
-                             return_cache=need_cache)
+                             return_cache=need_cache, train=train)
         if need_cache:
             a, cache_kv = a
         branch = branch + a
@@ -200,7 +209,7 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
             s_out, new_ssm_state = ssm_mod.mamba_forward(
                 lp["ssm"], h, cfg, return_state=True)
         else:
-            s_out = ssm_mod.mamba_forward(lp["ssm"], h, cfg)
+            s_out = ssm_mod.mamba_forward(lp["ssm"], h, cfg, train=train)
         if cfg.parallel_ssm:
             s_out = rms_norm(s_out, lp["ssm_norm"], cfg.norm_eps)
             branch = 0.5 * (branch + s_out)
@@ -252,8 +261,27 @@ def layer_decode(lp: Params, x: torch.Tensor, cache, cfg: ModelConfig, *,
 # Stack
 # ---------------------------------------------------------------------------
 
+# the matmul outputs that remat="dots" saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _remat(fn: Callable, cfg: ModelConfig, train: bool) -> Callable:
+    """`fn` (one layer) checkpointed by ``cfg.remat`` when training."""
+    if not train or cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, list(_DOTS)))
+    raise ValueError(f"remat must be full, dots or none, got {cfg.remat!r}")
+
+
 def decoder_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                    positions, need_cache: bool = False):
+                    positions, need_cache: bool = False,
+                    train: bool = False):
     """Runs the decoder stacks on embedded inputs -> (hidden, aux, caches).
     aux sums the MoE layers' aux losses (0 without MoE).  With
     `need_cache`, caches maps each stack's cache name (``stacks``) to
@@ -269,10 +297,10 @@ def decoder_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             # the dense stack attends with the config's window throughout
             window = (_layer_window(cfg, i) if name == "main"
                       else cfg.sliding_window)
-            x, a, kv, st = layer_forward(layer_slice(params[key], i), x,
-                                         cfg, positions=positions,
-                                         window=window,
-                                         need_cache=need_cache)
+            layer = _remat(functools.partial(
+                layer_forward, cfg=cfg, positions=positions, window=window,
+                need_cache=need_cache, train=train), cfg, train)
+            x, a, kv, st = layer(layer_slice(params[key], i), x)
             aux = aux + a
             kvs.append(kv)
             states.append(st)
@@ -282,43 +310,66 @@ def decoder_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, aux, (caches if need_cache else None)
 
 
-def encoder_forward(params: Params, frames: torch.Tensor, cfg: ModelConfig):
+def _encoder_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                   positions, train: bool):
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    x = x + attn.encoder_attention(lp["attn"], h, cfg=cfg,
+                                   positions=positions,
+                                   train=train).to(x.dtype)
+    return _ffn(lp, x, cfg)[0]
+
+
+def encoder_forward(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+                    train: bool = False):
     """Whisper-style encoder over (stubbed) frame embeddings (B,T,d)."""
     b, t = frames.shape[:2]
     positions = torch.arange(t, dtype=torch.int32,
                              device=frames.device).expand(b, t)
+    layer = _remat(functools.partial(_encoder_layer, cfg=cfg,
+                                     positions=positions, train=train),
+                   cfg, train)
     x = frames
     for i in range(cfg.encoder_layers):
-        lp = layer_slice(params["enc_layers"], i)
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        x = x + attn.encoder_attention(lp["attn"], h, cfg=cfg,
-                                       positions=positions).to(x.dtype)
-        x = _ffn(lp, x, cfg)[0]
+        x = layer(layer_slice(params["enc_layers"], i), x)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _encdec_layer(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
+                  cfg: ModelConfig, *, positions, need_cache: bool,
+                  train: bool):
+    """One Whisper decoder layer -> (x, its cache entries or None)."""
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    x = x + attn.gqa_forward(lp["attn"], h, cfg=cfg, positions=positions,
+                             window=0, train=train).to(x.dtype)
+    hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+    ek, ev = attn.cross_kv(lp["xattn"], enc_out)
+    x = x + attn.cross_attention(lp["xattn"], hx, ek, ev, cfg=cfg,
+                                 train=train).to(x.dtype)
+    x = _ffn(lp, x, cfg)[0]
+    if not need_cache:
+        return x, None
+    return x, (attn.gqa_prefill_kv(lp["attn"], h, cfg=cfg,
+                                   positions=positions), (ek, ev))
 
 
 def encdec_decoder_forward(params: Params, x: torch.Tensor,
                            enc_out: torch.Tensor, cfg: ModelConfig, *,
-                           positions, need_cache: bool = False):
+                           positions, need_cache: bool = False,
+                           train: bool = False):
     """Whisper decoder: self-attn + cross-attn + ffn per layer ->
     (hidden, caches).  With `need_cache`, caches is ((k, v), (ek, ev)),
     each stacked over the layers: the self-attention's (L,B,S,nkv,hd)
     and the encoder's cross K/V (L,B,T,nkv,hd); else None."""
+    layer = _remat(functools.partial(_encdec_layer, cfg=cfg,
+                                     positions=positions,
+                                     need_cache=need_cache, train=train),
+                   cfg, train)
     kvs, crosses = [], []
     for i in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], i)
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        x = x + attn.gqa_forward(lp["attn"], h, cfg=cfg, positions=positions,
-                                 window=0).to(x.dtype)
-        hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
-        ek, ev = attn.cross_kv(lp["xattn"], enc_out)
-        x = x + attn.cross_attention(lp["xattn"], hx, ek, ev,
-                                     cfg=cfg).to(x.dtype)
-        x = _ffn(lp, x, cfg)[0]
+        x, got = layer(layer_slice(params["layers"], i), x, enc_out)
         if need_cache:
-            kvs.append(attn.gqa_prefill_kv(lp["attn"], h, cfg=cfg,
-                                           positions=positions))
-            crosses.append((ek, ev))
+            kvs.append(got[0])
+            crosses.append(got[1])
     if not need_cache:
         return x, None
     stack = lambda pairs: tuple(torch.stack(t) for t in zip(*pairs))
@@ -333,3 +384,21 @@ def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return linear(x, head)
+
+
+def mtp_forward(params: Params, h: torch.Tensor, tokens: torch.Tensor,
+                cfg: ModelConfig, *, positions) -> torch.Tensor:
+    """DeepSeek-V3 MTP (depth 1), a training path: combine the final
+    hidden h_t with the embedding of token_{t+1}; the shared head then
+    predicts token_{t+2}.  Its layer is not checkpointed (the JAX
+    package's is not either)."""
+    mp = params["mtp"]
+    emb_next = embed_tokens(params, tokens, cfg)         # (B,S,d) of t+1
+    h_n = rms_norm(h, mp["norm_h"], cfg.norm_eps)
+    e_n = rms_norm(emb_next, mp["norm_e"], cfg.norm_eps)
+    z = linear(torch.cat([h_n, e_n], dim=-1), mp["proj"])
+    z, _, _, _ = layer_forward(mp["layer"], z, cfg, positions=positions,
+                               window=cfg.sliding_window, train=True)
+    z = rms_norm(z, mp["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return linear(z, head)
