@@ -12,12 +12,26 @@ kernels' launch counts set to 0 just before and read just after:
   (PilotSession -> add_pilots -> data -> replicate_to_pilot -> kmeans) at
   the paper's three scenario sizes, checked against the same run on the
   CPU (kernel kmeans_assign);
+- KMeans elastic: scenario (i) over the device tiers of three simulated
+  slurm pilots (two replicas a partition) in a supervised, rebalancing
+  session; the second pilot's node is lost after iteration 1 (its device
+  memory freed), the supervisor respawns it and restores the replication,
+  a pilot added by hand gives the rebalancer skew to move; held to an
+  undisturbed run of the same seed; then one pilot on each simulated
+  substrate for the paper's Fig. 6 provisioning ratios;
 - serving Llama-3.2-1B at its published widths (random weights from a
   seed) by ServingEngine on a PilotSession pilot, 16 requests at batch 8
   (kernels flash_attention in each prefill, on the tensor cores since the
   model runs bf16, decode_attention in each decode step), after a
   model-level check of the kernel decode path against the plain one and
   an fp32 run;
+- serving Llama-3.2-1B elastically: a burst of 32 requests on one pilot
+  of a supervised, autoscaled session (at most 3 pilots on the card); the
+  autoscaler scales out on the queue wait, the engine adopts each new
+  pilot as a replica, and the first replica is scaled in by hand while it
+  holds rows: its requests are handed off and re-prefilled on the
+  survivors (flash_attention), each held to the same request on one
+  undisturbed replica up to the handoff;
 - serving Hymba-1.5B at its published widths (32 layers of parallel
   attention and Mamba heads, sliding window 1024 but for 3 global layers)
   the same way, 16 requests of 512-2048 prompt tokens at batch 8 (kernels
@@ -48,14 +62,18 @@ kernels' launch counts set to 0 just before and read just after:
   and the training scan's time.  Training launches none of the four
   kernels (they are forward-only, and the JAX package trains through none
   of its Pallas kernels): each count is 0, and is asserted so.
+- resilient training: the 100m preset's train step through
+  ``runtime.fault_tolerance.ResilientRunner``, 12 steps on a simulated
+  pilot lost after 7 (one recovery from the step-4 checkpoint), held to
+  an uninterrupted run; no kernel.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without CUDA or outside a checkout of the
 repository.  It imports nothing of JAX or of the JAX package.
 
 Output: progress lines, then the card's name and power limit, a
-``{"training": {...}}`` line, a ``{"kernels": [...]}`` line, and as the
-last line
+``{"training": {...}}`` line, an ``{"elastic": {...}}`` line, a
+``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -683,7 +701,8 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
     assert st["refills"] >= SERVE_BATCH, st
     assert seen == {"cuda"}, f"runtime params/cache on {seen}"
     return {"stats": st, "wall_s": wall, "launches": launches,
-            "setup_s": setup, "peak_bytes": peak, "after": extra}
+            "setup_s": setup, "peak_bytes": peak, "after": extra,
+            "outs": outs}
 
 
 def serve_line(name, cfg, res, width="full width") -> str:
@@ -1904,6 +1923,542 @@ def training_phase(torch, kernels: dict) -> dict:
             "options": options, "launches": launches, "scan": scan}
 
 
+# -- the elastic phases -------------------------------------------------------
+# elastic serving: a burst of 32 requests on one Llama-3.2-1B replica, a
+# fleet of at most 3 pilots on the one card
+ELASTIC_REQUESTS, ELASTIC_MAX_PILOTS, ELASTIC_MEMORY_GB = 32, 3, 4
+# resilient training: the 100m preset, 12 steps of 8 x 512, a checkpoint
+# every 4 steps, the first pilot lost after 7 compute units
+RESILIENT_STEPS, RESILIENT_EVERY, RESILIENT_FAIL_AT = 12, 4, 7
+RESILIENT_BATCH, RESILIENT_SEQ = 8, 512
+# elastic KMeans: the rebalancer idles (a skew no placement reaches, busy
+# pilots' bytes weighing up to 3x) while KMeans runs and the node dies, so
+# that no migration allocates on the card while the kill's release is
+# read; once the fleet is repaired it moves at 1.2x the mean pressure
+REBALANCE_IDLE_SKEW, REBALANCE_SKEW = 8.0, 1.2
+
+
+def runtime_ready(eng, pilot) -> bool:
+    return (eng.name, "runtime") in pilot._jit_cache
+
+
+def elastic_serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
+    """Llama-3.2-1B at full width on an elastic, supervised session: a
+    burst of 32 requests lands on one replica; the autoscaler scales out
+    on the queue wait (the reaper adopts each newcomer as a replica); then
+    the first replica, holding rows in flight, is scaled in by hand: its
+    requests are handed off through drain_replica and re-prefilled on the
+    survivors.  Held against the same 32 requests on one undisturbed
+    replica: the tokens of each handed-off request up to the handoff."""
+    from repro_torch.core import LoadScalingPolicy
+    from repro_torch.core.backends.base import register_backend
+    from repro_torch.core.backends.simulated import SimulatedClusterBackend
+    from repro_torch.core.taskengine import current_pilot
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(1)
+    lens = itertools.islice(itertools.cycle(PROMPT_LENS), ELASTIC_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    n = len(prompts)
+    alone = serve(torch, core, cfg, params, prompts, kernels,
+                  max_len=SERVE_MAX_LEN, memory_gb=ELASTIC_MEMORY_GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    kv_bytes = (2 * cfg.num_layers * SERVE_BATCH * SERVE_MAX_LEN
+                * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
+
+    model = build_model(cfg)
+    firsts = {}                 # pilot id -> wall clock of its first token
+    inner = model.prefill
+
+    def prefill(p, batch, max_len):
+        out = inner(p, batch, max_len)
+        pilot = current_pilot()
+        if pilot is not None and pilot.id not in firsts:
+            torch.cuda.current_stream().synchronize()
+            firsts[pilot.id] = time.time()
+        return out
+
+    model = dataclasses.replace(model, prefill=prefill)
+    register_backend(SimulatedClusterBackend(substrate="slurm"))
+    # scale-out after 0.25 s of queue wait held for 2 ticks; the scale-in
+    # is the phase's own (by hand, mid-stream): the policy's waits for 10 s
+    # of cold signal, longer than the burst
+    policy = LoadScalingPolicy(serving_wait_s=0.25, hysteresis=2,
+                               in_hysteresis=200)
+    ready = {}                  # pilot id -> wall clock its runtime was seen
+
+    def note_ready(s, eng):
+        for p in s.pilots:
+            if p.id not in ready and runtime_ready(eng, p):
+                ready[p.id] = time.time()
+
+    with core.PilotSession(
+            supervise=True, autoscale=True, min_pilots=1,
+            max_pilots=ELASTIC_MAX_PILOTS,
+            autoscaler_kwargs={"policy": policy, "interval_s": 0.05,
+                               "cooldown_s": 0.5}) as s:
+        (first,) = s.add_pilots(1, backend="simulated",
+                                memory_gb=ELASTIC_MEMORY_GB)
+        auto = s.autoscaler
+        with ServingEngine(s, model, params=params, batch_size=SERVE_BATCH,
+                           max_len=SERVE_MAX_LEN, page_tokens=16) as eng:
+            eng.deploy()
+            deadline = time.monotonic() + 300
+            while not runtime_ready(eng, first):
+                assert time.monotonic() < deadline, "no runtime in 300 s"
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, SERVE_GEN) for p in prompts]
+            # the queue wait grows the fleet to its maximum
+            deadline = time.monotonic() + 120
+            while True:
+                note_ready(s, eng)
+                grown = [p for p in s.pilots if p is not first]
+                if (len(grown) == ELASTIC_MAX_PILOTS - 1
+                        and all(p.id in ready for p in grown)):
+                    break
+                assert time.monotonic() < deadline, (
+                    "the fleet did not grow", auto.stats()["decisions"])
+                time.sleep(0.005)
+            in_flight = len(eng._replicas[first.id].active)
+            queued_then = len(eng._replicas[first.id].queue)
+            assert in_flight > 0, ("the first replica finished before the "
+                                   "fleet grew")
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            released = auto.scale_in(first, reason="handoff of a replica "
+                                     "holding rows")
+            drain_s = time.perf_counter() - t1
+            gc.collect()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            assert released is first, auto.stats()["decisions"][-1]
+            eng.drain(timeout=900)
+            wall = time.perf_counter() - t0
+            launches = read_counts(kernels)
+            outs = [r.result(timeout=10) for r in reqs]
+            handed = {i: len(r.prior) for i, r in enumerate(reqs)
+                      if r.recoveries}
+            st = eng.stats()
+            peak = torch.cuda.max_memory_allocated()
+            note_ready(s, eng)
+        ast = auto.stats()
+    freed = before - after
+    prefills = st["waves"] + st["refills"]
+    alone_prefills = alone["stats"]["waves"] + alone["stats"]["refills"]
+    assert st["completed"] == n, st
+    assert all(len(o) == SERVE_GEN for o in outs)
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o)
+    assert st["tokens_served"] >= n * SERVE_GEN, st
+    assert handed, "no request was handed off"
+    for i, kept in handed.items():
+        assert outs[i][:kept] == alone["outs"][i][:kept], (
+            f"request {i}: the tokens before the handoff differ", kept)
+    tails = sum(outs[i] != alone["outs"][i] for i in handed)
+    assert launches["decode_attention"] == (
+        cfg.num_layers * st["decode_steps"]) > 0, (launches, st)
+    assert launches["decode_attention_tc"] == launches["decode_attention"]
+    assert launches["flash_attention"] == cfg.num_layers * prefills, (
+        launches, st)
+    assert launches["flash_attention_fp32"] == 0, launches
+    # the re-prefills of the handed-off requests
+    assert prefills > alone_prefills, (prefills, alone_prefills)
+    assert (launches["flash_attention"]
+            - alone["launches"]["flash_attention"]) == (
+        cfg.num_layers * (prefills - alone_prefills))
+    outs_d = [d for d in ast["decisions"] if d["action"] == "scale-out"]
+    ins_d = [d for d in ast["decisions"] if d["action"] == "scale-in"]
+    assert ast["counters"]["scale_outs"] >= 1 and outs_d, ast["counters"]
+    assert ast["counters"]["scale_ins"] >= 1 and ins_d, ast["counters"]
+    assert all(d["signals"].get("n_pilots", 0) >= 1
+               for d in outs_d + ins_d), "a decision without its signals"
+    assert "serving wait" in outs_d[0]["reason"], outs_d[0]["reason"]
+    handoff = next(d for d in ins_d if d["pilot"] == first.id)
+    assert handoff["detail"]["serving_handoff"] >= in_flight, handoff
+    # the drained replica's weights and KV cache were released: the
+    # survivors may have allocated a KV cache each and their re-prefills'
+    # temporaries meanwhile, together below 3 caches
+    assert freed >= param_bytes - 3 * kv_bytes, (freed, param_bytes,
+                                                 kv_bytes)
+    scale_outs = [{"pilot": d["pilot"], "reason": d["reason"],
+                   "ready_s": (ready[d["pilot"]] - d["t"]
+                               if d["pilot"] in ready else None),
+                   "first_token_s": (firsts[d["pilot"]] - d["t"]
+                                     if d["pilot"] in firsts else None),
+                   "serving_wait_s": d["signals"]["serving_wait_s"],
+                   "serving_queued": d["signals"]["serving_queued"]}
+                  for d in outs_d]
+    row = {"requests": n, "gen": SERVE_GEN, "wall_s": wall,
+           "tokens_per_s": n * SERVE_GEN / wall,
+           "tokens_served": st["tokens_served"],
+           "decode_steps": st["decode_steps"], "prefills": prefills,
+           "p50_latency_s": st["p50_latency_s"],
+           "p99_latency_s": st["p99_latency_s"],
+           "undisturbed": {"wall_s": alone["wall_s"],
+                           "tokens_per_s": n * SERVE_GEN / alone["wall_s"],
+                           "p50_latency_s": alone["stats"]["p50_latency_s"],
+                           "p99_latency_s": alone["stats"]["p99_latency_s"],
+                           "decode_steps": alone["stats"]["decode_steps"],
+                           "prefills": alone_prefills,
+                           "peak_bytes": alone["peak_bytes"]},
+           "scale_outs": scale_outs, "drain_s": drain_s,
+           "in_flight_at_handoff": in_flight,
+           "queued_at_handoff": queued_then,
+           "handed_off": len(handed),
+           "handed_off_tokens_kept": sorted(handed.values()),
+           "bf16_tails_differing": tails,
+           "recovered_requests": st["recovered_requests"],
+           "drained_replicas": st["drained_replicas"],
+           "freed_bytes_at_scale_in": freed,
+           "replica_param_bytes": param_bytes, "replica_kv_bytes": kv_bytes,
+           "peak_bytes": peak, "launches": launches,
+           "undisturbed_launches": alone["launches"],
+           "autoscaler_counters": ast["counters"]}
+    timing = [(o["ready_s"], o["first_token_s"]) for o in scale_outs]
+    log(f"elastic serving llama3.2-1b full width, {n} requests at batch "
+        f"{SERVE_BATCH} on 1 -> {ELASTIC_MAX_PILOTS} pilots: "
+        f"{n * SERVE_GEN} tokens in {wall:.6f} s "
+        f"({n * SERVE_GEN / wall:.3f} tok/s; one undisturbed replica "
+        f"{n * SERVE_GEN / alone['wall_s']:.3f}); p50/p99 latency "
+        f"{st['p50_latency_s']:.6f}/{st['p99_latency_s']:.6f} s "
+        f"(undisturbed {alone['stats']['p50_latency_s']:.6f}/"
+        f"{alone['stats']['p99_latency_s']:.6f}); scale-outs (decision -> "
+        f"runtime ready, -> first token, s) {timing}; drain {drain_s:.6f} s "
+        f"handing off {len(handed)} requests ({in_flight} in rows, "
+        f"{queued_then} queued; tokens kept {sorted(handed.values())}), "
+        f"{tails} with bf16 tails that differ from the undisturbed run "
+        f"after the handoff; freed {freed / 1e9:.3f} GB at scale-in "
+        f"(replica weights {param_bytes / 1e9:.3f} GB, KV cache "
+        f"{kv_bytes / 1e9:.3f} GB); peak device memory {peak / 1e9:.3f} GB; "
+        f"prefills {prefills} (undisturbed {alone_prefills}); launches "
+        f"{launches}; autoscaler {ast['counters']}")
+    return {"row": row, "launches": launches,
+            "undisturbed_launches": alone["launches"]}
+
+
+def elastic_kmeans(torch, core, pts, k: int, kernel_mod, kill: bool) -> dict:
+    """Scenario (i) over the device tiers of three simulated slurm pilots
+    (each partition on two of them) in a supervised, rebalancing session.
+    With `kill`, the second pilot's node is lost after iteration 1 (a
+    kill armed on it and fired by a health() probe; the backend's
+    ChaosPolicy wipes its memory), the supervisor respawns it and repairs
+    the replication, and one more pilot is then added by hand for the
+    rebalancer to move partitions onto."""
+    import threading
+    from repro_torch.core import InterconnectModel
+    from repro_torch.core.backends.base import register_backend
+    from repro_torch.core.backends.simulated import (ChaosEvent, ChaosPolicy,
+                                                     SimulatedClusterBackend)
+    from repro_torch.core.pilot import State
+    be = SimulatedClusterBackend(
+        substrate="slurm", policy=ChaosPolicy(lose_memory=True,
+                                              target_index=1))
+    register_backend(be)
+    rec = {}
+    calls = []                                  # (thread name, clock)
+    lock = threading.Lock()
+
+    def map_fn(points, centroids):
+        with lock:
+            calls.append((threading.current_thread().name,
+                          time.monotonic()))
+        return core.assign_partial(points, centroids)
+
+    with core.PilotSession(
+            supervise=True, rebalance=True, interconnect=InterconnectModel(),
+            supervisor_kwargs={"interval_s": 0.02, "min_heartbeat_s": 0.05,
+                               "repair_interval_s": 0.05},
+            rebalancer_kwargs={"tier": "device", "skew": REBALANCE_IDLE_SKEW,
+                               "interval_s": 0.05}) as s:
+        pilots = s.add_pilots(3, backend="simulated", memory_gb=1)
+        target = pilots[1]
+        pds = s.data_service
+        du = s.data("points", pts, parts=PARTS)
+        for i in range(PARTS):        # two device replicas: 5/6/5 a pilot
+            for p in (pilots[i % 3], pilots[(i + 1) % 3]):
+                pds.replicate(du, i, p.id, "device")
+        pds.register(du, replication=2)     # the target, once placed
+        # what was quarantined when the rebalancer started each move
+        moves_seen = []
+        replicate = pds.replicate
+
+        def recorded(du_, i, pid, tier="device", pin=False):
+            if threading.current_thread().name == "pilot-rebalancer":
+                moves_seen.append((i, pid, frozenset(
+                    set(s.manager.policy.quarantined) | set(pds.avoided)
+                    | set(s.supervisor.quarantined))))
+            return replicate(du_, i, pid, tier, pin)
+
+        pds.replicate = recorded
+
+        def on_iteration(i, sse):
+            if i != 1 or not kill:
+                return
+            tm = target.tier_manager
+            torch.cuda.synchronize()
+            rec["before"] = torch.cuda.memory_allocated()
+            rec["held"] = tm.usage("device")
+            rec["held_parts"] = len(tm.resident_keys("device"))
+            target.arm_chaos((ChaosEvent(at_s=0.0, action="kill"),))
+            rec["t_kill"] = time.monotonic()
+            be.health(target)                   # the probe fires the kill
+            deadline = time.monotonic() + 5
+            while not any(e["op"] == "lose-volatile" for e in tm.events):
+                assert time.monotonic() < deadline, "the kill never fired"
+                time.sleep(0.001)
+            torch.cuda.synchronize()
+            rec["after"] = torch.cuda.memory_allocated()
+            # FAILED, or already CANCELED by the supervisor's release
+            assert target.state is not State.RUNNING, target.state
+
+        kernel_mod.LAUNCHES = 0
+        res = s.kmeans(du, k=k, iters=ITERS, map_fn=map_fn,
+                       on_iteration=on_iteration)
+        torch.cuda.synchronize()
+        out = {"sse": res.sse_history, "centroids": res.centroids,
+               "iter_s": res.iter_seconds, "launches": kernel_mod.LAUNCHES,
+               "map_calls": len(calls)}
+        if not kill:
+            return out
+        sup = s.supervisor
+        deadline = time.monotonic() + 60
+        while True:
+            rs = pds.replication_stats()["points"]
+            if (sup.respawns and rs["under"] == 0
+                    and min(rs["per_partition"].values()) >= 2):
+                break
+            assert time.monotonic() < deadline, ("repair incomplete", rs)
+            time.sleep(0.01)
+        repair_s = time.monotonic() - rec["t_kill"]
+        respawn = sup.respawns[0]
+        assert respawn.old_pilot == target.id, respawn
+        # one more pilot, by hand: skew for the rebalancer to move
+        assert not s.rebalancer.stats()["migrations"]
+        s.rebalancer.skew = REBALANCE_SKEW
+        t0 = time.perf_counter()
+        grown = s.add_pilot(backend="simulated", memory_gb=1)
+        grow_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 30
+        while not s.rebalancer.stats()["migrations"]:
+            assert time.monotonic() < deadline, s.rebalancer.stats()
+            time.sleep(0.01)
+        time.sleep(0.2)                         # let the round finish
+        rb = s.rebalancer.stats()
+        parts = np.array_split(pts, PARTS)
+        for m in rb["migrations"]:
+            assert m["cost_s"] > 0, m                  # priced
+            bad = next(q for i, pid, q in moves_seen
+                       if (i, pid) == (m["part"], m["dst"]))
+            assert not {m["src"], m["dst"]} & (bad | {target.id}), m
+            tm = pds.manager_for(m["dst"])
+            key = du._key(m["part"])
+            if tm is not None and tm.tier_of(key) == "device":
+                got = tm.backends["device"].get_device(key)
+                assert got.device == s.compute.pilots[m["dst"]].devices[0]
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              parts[m["part"]])
+        rs = pds.replication_stats()["points"]
+        assert rs["under"] == 0 and min(rs["per_partition"].values()) >= 2
+        wasted = sum(1 for name, t in calls
+                     if name.startswith(target.id) and t >= rec["t_kill"])
+    out.update({
+        "killed": target.id, "respawned_as": respawn.new_pilot,
+        "respawn_s": respawn.downtime_s, "held_bytes": rec["held"],
+        "held_partitions": rec["held_parts"],
+        "freed_bytes": rec["before"] - rec["after"], "repair_s": repair_s,
+        "grown": grown.id, "grow_provision_s": grown.provision_time,
+        "grow_s": grow_s, "wasted_map_calls": wasted,
+        "replication": rs["per_partition"],
+        "migrations": rb["migrations"], "rebalancer": rb["counters"]})
+    return out
+
+
+def elastic_kmeans_phase(torch, core, kernel_mod) -> dict:
+    """The paper's scenario (i) (1M x K=50, D=8, f32, 8 partitions, two
+    replicas each) through a pilot loss, a repair and a rebalance, held
+    to an undisturbed run of the same seed at the tolerance the main path
+    holds the card to the CPU with; then one pilot provisioned on each
+    simulated substrate (the paper's Fig. 6 provisioning ratios)."""
+    from repro_torch.core import PilotComputeDescription
+    from repro_torch.core.analytics import PAPER_SCENARIOS, make_blobs
+    from repro_torch.core.backends.base import register_backend
+    from repro_torch.core.backends.simulated import (SUBSTRATES,
+                                                     SimulatedClusterBackend)
+    n, k = PAPER_SCENARIOS["i"]
+    pts, _ = make_blobs(n, min(k, 256), d=D, seed=3)
+    calm = elastic_kmeans(torch, core, pts, k, kernel_mod, kill=False)
+    assert calm["launches"] == ITERS * PARTS == calm["map_calls"], calm
+    hit = elastic_kmeans(torch, core, pts, k, kernel_mod, kill=True)
+    np.testing.assert_allclose(hit["sse"], calm["sse"], rtol=1e-4)
+    np.testing.assert_allclose(hit["centroids"], calm["centroids"],
+                               atol=1e-3)
+    assert hit["launches"] == hit["map_calls"] == (
+        ITERS * PARTS + hit["wasted_map_calls"]), hit
+    assert hit["freed_bytes"] >= hit["held_bytes"] > 0, hit
+    assert hit["rebalancer"]["migrations"] >= 1, hit["rebalancer"]
+    provision = {}
+    for sub in SUBSTRATES:
+        be = SimulatedClusterBackend(substrate=sub)
+        pilot = be.provision(PilotComputeDescription(backend="simulated",
+                                                     memory_gb=1))
+        provision[sub] = pilot.provision_time
+        be.release(pilot)
+    register_backend(SimulatedClusterBackend())
+    ratios = {sub: t / provision["slurm"] for sub, t in provision.items()}
+    row = {"points": n, "k": k, "parts": PARTS, "replication": 2,
+           "sse": hit["sse"], "sse_undisturbed": calm["sse"],
+           "max_abs_dcentroids": float(np.abs(
+               hit["centroids"] - calm["centroids"]).max()),
+           "iter_s": hit["iter_s"], "iter_s_undisturbed": calm["iter_s"],
+           "launches": hit["launches"],
+           "launches_undisturbed": calm["launches"],
+           "wasted_map_calls": hit["wasted_map_calls"],
+           "held_bytes": hit["held_bytes"],
+           "held_partitions": hit["held_partitions"],
+           "freed_bytes": hit["freed_bytes"], "repair_s": hit["repair_s"],
+           "respawn_s": hit["respawn_s"],
+           "grow_provision_s": hit["grow_provision_s"],
+           "replication_after": hit["replication"],
+           "migrations": hit["migrations"], "rebalancer": hit["rebalancer"],
+           "provision_s": provision, "provision_ratio_to_slurm": ratios}
+    moves = [(m["part"], m["cost_s"]) for m in hit["migrations"]]
+    log(f"elastic kmeans scenario i N={n} K={k} D={D} over 3 simulated "
+        f"slurm pilots (2 device replicas a partition): the kill of "
+        f"{hit['killed']} after iteration 1 freed {hit['freed_bytes']} "
+        f"bytes of device memory (it held {hit['held_bytes']} in "
+        f"{hit['held_partitions']} partitions); sse={hit['sse']} "
+        f"(undisturbed {calm['sse']}); iter_s={hit['iter_s']} (undisturbed "
+        f"{calm['iter_s']}); launches {hit['launches']} (undisturbed "
+        f"{calm['launches']}, wasted {hit['wasted_map_calls']}); respawn "
+        f"{hit['respawn_s']:.6f} s, replication restored "
+        f"{hit['repair_s']:.6f} s after the kill; a pilot added by hand in "
+        f"{hit['grow_s']:.6f} s; rebalancer {hit['rebalancer']}, moves "
+        f"(partition, priced s) {moves}; provisioning s {provision} "
+        f"(x slurm {ratios})")
+    return row
+
+
+def resilient_training_phase(torch, kernels: dict) -> dict:
+    """The port's train step through ResilientRunner: the 100m preset
+    (8 layers, d 768), 12 steps of 8 x 512 tokens, a checkpoint every 4
+    steps, on a simulated pilot whose node is lost after 7 compute units
+    (FaultPolicy(fail_devices_at=7)); the replacement comes from a
+    healthy allocation.  Held to an uninterrupted 12-step run from the
+    same init and batches.  No kernel runs in training."""
+    import shutil
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core import PilotComputeDescription, PilotComputeService
+    from repro_torch.core.backends.base import register_backend
+    from repro_torch.core.backends.simulated import (FaultPolicy,
+                                                     SimulatedClusterBackend)
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.fault_tolerance import ResilientRunner
+    from repro_torch.train import steps as steps_mod
+
+    cfg = scaled_config("llama3_2_1b", "100m")
+    model = build_model(cfg)
+    pcfg = ParallelConfig()
+    tcfg = TrainConfig(learning_rate=3e-4, total_steps=RESILIENT_STEPS,
+                       warmup_steps=2)
+    step = steps_mod.make_train_step(model, pcfg, tcfg)
+    root = ROOT / "build" / "resilient_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def init():
+        return steps_mod.init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0), pcfg,
+            device="cuda")
+
+    def batch(i):
+        return train_batch(torch, cfg, RESILIENT_BATCH, RESILIENT_SEQ,
+                           seed=1000 + i, device="cuda")
+
+    def run(desc, doomed=None):
+        svc = PilotComputeService()
+        try:
+            runner = ResilientRunner(
+                svc, desc, CheckpointManager(root / desc.backend),
+                checkpoint_every=RESILIENT_EVERY, max_recoveries=3)
+            if doomed is not None:
+                # the job starts on a node that will be lost; the
+                # replacement comes from a healthy allocation (a faulty
+                # backend's policy would hold for its replacement too)
+                register_backend(doomed)
+                runner.pilot = svc.submit_pilot(desc)
+                register_backend(SimulatedClusterBackend(substrate="slurm"))
+            t0 = time.perf_counter()
+            final, metrics = runner.run(init(), step, RESILIENT_STEPS,
+                                        batch_fn=batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return final, [float(m["loss"]) for m in metrics], runner, wall
+        finally:
+            svc.cancel_all()
+
+    zero_counts(kernels)
+    want, want_losses, _, plain_s = run(
+        PilotComputeDescription(backend="inprocess"))
+    got, losses, runner, wall = run(
+        PilotComputeDescription(backend="simulated"),
+        doomed=SimulatedClusterBackend(
+            substrate="slurm",
+            policy=FaultPolicy(fail_devices_at=RESILIENT_FAIL_AT)))
+    launches = read_counts(kernels)
+    register_backend(SimulatedClusterBackend())
+    shutil.rmtree(root, ignore_errors=True)
+    assert not any(launches.values()), ("training launched a kernel",
+                                        launches)
+    assert len(runner.recoveries) == 1, runner.recoveries
+    ev = runner.recoveries[0]
+    assert ev.step == RESILIENT_FAIL_AT and ev.restored_step in (4, 8), ev
+    assert all(map(math.isfinite, losses)), losses
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    max_abs = max(float((a.float() - b.float()).abs().max())
+                  for a, b in pairs)
+    for a, b in pairs:
+        # within two bf16 ulps of each param (fp32 moments far inside)
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7,
+                                   atol=1e-6)
+    r = ev.restored_step
+    assert len(losses) == RESILIENT_STEPS + ev.step - r, losses
+    # the steps both runs took from the same state: 0..6, then r..11
+    losses_equal = (losses[:ev.step] == want_losses[:ev.step]
+                    and losses[ev.step:] == want_losses[r:])
+    row = {"preset": "100m",
+           "params": sum(t.numel() for t in tree_leaves(want.params)),
+           "steps": RESILIENT_STEPS, "checkpoint_every": RESILIENT_EVERY,
+           "fail_devices_at": RESILIENT_FAIL_AT,
+           "recoveries": [dataclasses.asdict(e) for e in runner.recoveries],
+           "downtime_s": ev.downtime_s, "bit_equal": bit_equal,
+           "losses_equal": losses_equal, "max_abs_diff": max_abs,
+           "losses": losses, "uninterrupted_losses": want_losses,
+           "wall_s": wall, "uninterrupted_wall_s": plain_s,
+           "launches": launches}
+    log(f"resilient training 100m preset ({row['params']} parameters), "
+        f"{RESILIENT_STEPS} steps of {RESILIENT_BATCH} x {RESILIENT_SEQ}, "
+        f"checkpoint every {RESILIENT_EVERY}: pilot lost at step {ev.step}, "
+        f"restored step {r} on {ev.new_pilot} after {ev.downtime_s:.6f} s "
+        f"of downtime; run {wall:.6f} s (uninterrupted {plain_s:.6f} s); "
+        f"final state bit-equal to the uninterrupted run: {bit_equal} "
+        f"(max |diff| {max_abs:.3e}), losses of the shared steps equal: "
+        f"{losses_equal}; kernel launches {launches}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2029,6 +2584,12 @@ def main() -> int:
     log(f"main path v1 device tier N={n} K={k}: launches={launches} "
         f"sse={v1.sse_history} iter_s={v1.iter_seconds}")
 
+    # -- 3b. KMeans through a pilot loss, a repair and a rebalance -----------
+    ekmeans = elastic_kmeans_phase(torch, core, kernel_mod)
+    launches_total += ekmeans["launches"] + ekmeans["launches_undisturbed"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 4. decode_attention vs its plain version on the card ---------------
     attn_shapes = [
         ("serving fill 0.25", 8, 1024, 32, 8, 64, bf16, 0, {"fill": 0.25}),
@@ -2107,6 +2668,10 @@ def main() -> int:
                      "flash_attention": (flash_mod, "TC_LAUNCHES"),
                      "flash_attention_fp32": (flash_mod, "LAUNCHES")}
     lserve = serving_phase(torch, core, cfg, params, llama_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 6a. the elastic fleet: scale-out on the queue wait, a drain -------
+    eserve = elastic_serving_phase(torch, core, cfg, params, llama_kernels)
     del params
     gc.collect()             # the closed session's runtime, held in cycles
     torch.cuda.empty_cache()
@@ -2122,6 +2687,10 @@ def main() -> int:
     assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
     training = training_phase(torch, all_kernels)
     train_launches = training["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 6c. the train step through the resilient runner -------------------
+    resilient = resilient_training_phase(torch, all_kernels)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2290,24 +2859,38 @@ def main() -> int:
         "p50_latency_s", "p99_latency_s")} | {
         "wall_s": res["wall_s"], "setup_s": res["setup_s"]}
     by_path = lambda name: {
-        path: res["launches"].get(name, 0) for path, res in (
-            ("llama3_2_1b serving", lserve), ("hymba_1_5b serving", hserve),
-            ("internvl2_2b serving", vserve),
-            ("mixtral_8x22b serving", mserve),
-            ("whisper_base serving", wserve),
-            ("deepseek_v3_671b serving", dserve))} | {
-        "llama3_2_1b training": train_launches[name]}
+        path: launches.get(name, 0) for path, launches in (
+            ("llama3_2_1b serving", lserve["launches"]),
+            ("llama3_2_1b serving, 32 requests on 1 replica",
+             eserve["undisturbed_launches"]),
+            ("llama3_2_1b elastic serving", eserve["launches"]),
+            ("hymba_1_5b serving", hserve["launches"]),
+            ("internvl2_2b serving", vserve["launches"]),
+            ("mixtral_8x22b serving", mserve["launches"]),
+            ("whisper_base serving", wserve["launches"]),
+            ("deepseek_v3_671b serving", dserve["launches"]))} | {
+        "llama3_2_1b training": train_launches[name],
+        "resilient training (100m)": resilient["launches"][name]}
     for name in ("kmeans_assign", "decode_attention", "flash_attention",
                  "selective_scan"):
         assert train_launches[name] == 0, (name, train_launches)
+        assert resilient["launches"][name] == 0, (name, resilient)
     log(card)
     log(json.dumps({"training": training}))
+    log(json.dumps({"elastic": {"serving": eserve["row"],
+                                "kmeans": ekmeans,
+                                "resilient_training": resilient}}))
     log(json.dumps({"kernels": [{
         "name": "kmeans_assign", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches_total,
         "launches_by_path": {
-            "kmeans main path": launches_total,
-            "llama3_2_1b training": train_launches["kmeans_assign"]},
+            "kmeans main path": launches_total - ekmeans["launches"]
+            - ekmeans["launches_undisturbed"],
+            "kmeans elastic, undisturbed": ekmeans["launches_undisturbed"],
+            "kmeans elastic, pilot lost": ekmeans["launches"],
+            "llama3_2_1b training": train_launches["kmeans_assign"],
+            "resilient training (100m)":
+            resilient["launches"]["kmeans_assign"]},
         "checked": True,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],

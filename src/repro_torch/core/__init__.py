@@ -24,6 +24,9 @@ v1 (the composable objects underneath — still public, still supported):
     cu.result()
 """
 from repro_torch.core.analytics import KMeansResult, assign_partial, kmeans, make_blobs
+from repro_torch.core.autoscaler import (Autoscaler, LoadScalingPolicy,
+                                         ScalingDecision, ScalingPolicy,
+                                         ScalingSignals)
 from repro_torch.core.buf import (Buf, STATS as TRANSPORT_STATS, copy_mode,
                             set_zero_copy, zero_copy_enabled)
 from repro_torch.core.codecs import (Codec, PickleCodec, RawCodec, decode_file,
@@ -40,6 +43,7 @@ from repro_torch.core.pilot import (ComputeUnit, ComputeUnitDescription,
                               DurabilityDescription, MemoryDescription,
                               PilotCompute, PilotComputeDescription, State)
 from repro_torch.core.pilotdata import PilotDataService
+from repro_torch.core.rebalance import Migration, Rebalancer
 from repro_torch.core.scheduling import (InterconnectModel, Link, LocalityPolicy,
                                    LocalityWeights, SchedulingPolicy)
 from repro_torch.core.session import PilotSession
@@ -70,6 +74,9 @@ __all__ = [
     "DispatchQueue", "current_pilot", "read_partition",
     # the supervision layer (self-healing sessions)
     "PilotSupervisor", "FailureDetector", "Backoff", "RespawnEvent",
+    # the elasticity layer (autoscaling + proactive rebalancing)
+    "Autoscaler", "ScalingPolicy", "LoadScalingPolicy", "ScalingSignals",
+    "ScalingDecision", "Rebalancer", "Migration",
     # the zero-copy data plane (views, codecs, transport counters)
     "Buf", "TRANSPORT_STATS", "copy_mode", "set_zero_copy",
     "zero_copy_enabled", "Codec", "RawCodec", "PickleCodec",

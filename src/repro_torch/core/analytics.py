@@ -69,12 +69,17 @@ def kmeans(du: DataUnit, k: int, iters: int = 5,
            pilot: Optional[PilotCompute] = None,
            map_fn: Callable = assign_partial,
            seed: int = 0, prefetch_depth: Optional[int] = None,
-           pipeline: bool = True) -> KMeansResult:
+           pipeline: bool = True,
+           on_iteration: Optional[Callable[[int, float], None]] = None
+           ) -> KMeansResult:
     """Lloyd's algorithm over a (possibly tiered) points DataUnit.
 
     prefetch_depth/pipeline tune the pipelined map_reduce engine (None =
     adaptive depth from measured stage/compute times); use pipeline=False
-    for the sequential i+1-prefetch baseline."""
+    for the sequential i+1-prefetch baseline.  `on_iteration(i, sse)`, if
+    given, runs on the caller's thread after iteration i (1-based), before
+    the next one starts: a known point between iterations (a progress
+    report, or a fault injected there)."""
     d = int(np.asarray(du.partition(0)).shape[1])
     # the centroids go to the device of the DU's device tier once per
     # iteration (one small copy), not once per partition
@@ -97,6 +102,8 @@ def kmeans(du: DataUnit, k: int, iters: int = 5,
         centroids[nonempty] = sums[nonempty] / counts[nonempty, None]
         sse_hist.append(float(sse))
         iter_secs.append(time.time() - t0)
+        if on_iteration is not None:
+            on_iteration(len(sse_hist), sse_hist[-1])
     return KMeansResult(centroids=centroids, sse_history=sse_hist,
                         iter_seconds=iter_secs,
                         total_seconds=time.time() - t_start, tier=du.tier)

@@ -94,14 +94,9 @@ def register_backend(backend: ComputeBackend):
 
 
 def get_backend(name: str) -> ComputeBackend:
-    if name == "simulated":
-        raise NotImplementedError(
-            "the simulated backend belongs to the 'Resilience and "
-            "elasticity' slice of ROADMAP.md and is not ported yet; use "
-            "backend='inprocess'")
     if name not in _REGISTRY:
         # late import side-effect registration
-        from repro_torch.core.backends import inprocess  # noqa: F401
+        from repro_torch.core.backends import inprocess, simulated  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"unknown backend {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -123,7 +123,7 @@ class PilotComputeDescription:
     the v1 API run unchanged.  Mixing a nested block with one of its flat
     fields is an error (ambiguous), as is any unknown kwarg.
     """
-    backend: str = "inprocess"       # adaptor name (inprocess)
+    backend: str = "inprocess"       # inprocess | simulated  (adaptor name)
     num_devices: int = 1
     # where the pilot's CUs and device tier run: cuda unless the caller
     # asks for the CPU (resolved at construction; raises without CUDA)
@@ -450,6 +450,10 @@ class PilotCompute:
             self.worker_pool.close()
         if self.tier_manager is not None:
             self.tier_manager.close()   # stop the stager threads
+        # a released pilot keeps no warm state: its cached executables and
+        # what they hold (a serving replica's weights on the card) go
+        # with it, even while something still refers to the pilot
+        self._jit_cache.clear()
         self.state = State.CANCELED if self.state != State.DONE else self.state
 
     def wait_idle(self, timeout: float = 60.0):

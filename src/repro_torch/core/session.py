@@ -35,10 +35,12 @@ not replacement — and `session.compute` / `session.manager` /
 cover.
 
 The session runs on the card unless `device="cpu"` is asked for; without
-CUDA it raises rather than falling back.  The elastic layers (autoscaler,
-rebalancer) and the simulated backend belong to the 'Resilience and
-elasticity' slice of ROADMAP.md and raise NotImplementedError until they
-are ported.
+CUDA it raises rather than falling back.  An elastic session:
+
+    with PilotSession(supervise=True, autoscale=True, rebalance=True,
+                      min_pilots=1, max_pilots=4) as s:
+        s.add_pilot(backend="simulated", memory_gb=1)   # a slurm/yarn/...
+        ...                                             # substrate model
 """
 from __future__ import annotations
 
@@ -84,11 +86,20 @@ class PilotSession:
         for DataUnits declared with `data(..., replication=n)`.  Extra
         keyword knobs go through `supervisor_kwargs` (e.g.
         ``supervisor_kwargs={"interval_s": 0.02}``).
+    autoscale: True makes the session elastic — an Autoscaler monitor
+        thread grows/shrinks the fleet between `min_pilots` and
+        `max_pilots` from live load (task-engine backlog, worker
+        utilization, tier pressure, serving queue wait), scaling out by
+        cloning the fleet's own description and scaling in through the
+        drain protocol (quiesce -> serving handoff -> evacuate every
+        resident partition -> release).  Extra knobs go through
+        `autoscaler_kwargs` (e.g. ``{"policy": LoadScalingPolicy(...)}``).
+    rebalance: True starts a background Rebalancer migrating partitions
+        off pressure-skewed pilots onto idle ones, priced by the
+        session's InterconnectModel; knobs via `rebalancer_kwargs`.
     device: where pilots and device-tier data live (default cuda; no
         CUDA raises).  Pilot descriptions built from kwargs by
         `add_pilot` inherit it; an explicit description always wins.
-    autoscale / rebalance: not ported yet (ROADMAP.md, 'Resilience and
-        elasticity'); True raises NotImplementedError.
     """
 
     def __init__(self, *, policy: Optional[SchedulingPolicy] = None,
@@ -98,14 +109,12 @@ class PilotSession:
                  history_limit: int = 1024, name: str = "",
                  supervise: bool = False,
                  supervisor_kwargs: Optional[dict] = None,
-                 autoscale: bool = False, rebalance: bool = False,
+                 autoscale: bool = False, min_pilots: int = 1,
+                 max_pilots: int = 8,
+                 autoscaler_kwargs: Optional[dict] = None,
+                 rebalance: bool = False,
+                 rebalancer_kwargs: Optional[dict] = None,
                  device: DeviceLike = None):
-        for flag, on in (("autoscale", autoscale), ("rebalance", rebalance)):
-            if on:
-                raise NotImplementedError(
-                    f"PilotSession({flag}=True): the elastic layers "
-                    f"belong to the 'Resilience and elasticity' slice of "
-                    f"ROADMAP.md and are not ported yet")
         self.device = resolve_device(device)
         self.name = name or f"session-{uuid.uuid4().hex[:8]}"
         self.interconnect = interconnect
@@ -125,17 +134,37 @@ class PilotSession:
         self._host_backend = make_backend("host")
         self._scratch: Optional[str] = None
         self._closed = False
-        # ServingEngines deployed on this session register here (the
-        # autoscaler, when ported, reads their load from this list)
+        # serving engines register themselves here (ServingEngine.deploy)
+        # so the autoscaler can read their queue-wait signal and hand off
+        # a draining pilot's replica before release
         self.serving_engines: List = []
         self._supervisor: Optional[PilotSupervisor] = None
         if supervise:
             self._supervisor = PilotSupervisor(
                 self, **(supervisor_kwargs or {})).start()
+        self._autoscaler = None
+        self._rebalancer = None
+        if autoscale:
+            from repro_torch.core.autoscaler import Autoscaler
+            self._autoscaler = Autoscaler(
+                self, min_pilots=min_pilots, max_pilots=max_pilots,
+                **(autoscaler_kwargs or {})).start()
+        if rebalance:
+            from repro_torch.core.rebalance import Rebalancer
+            self._rebalancer = Rebalancer(
+                self, **(rebalancer_kwargs or {})).start()
 
     @property
     def supervisor(self) -> Optional[PilotSupervisor]:
         return self._supervisor
+
+    @property
+    def autoscaler(self):
+        return self._autoscaler
+
+    @property
+    def rebalancer(self):
+        return self._rebalancer
 
     # -- lifecycle -------------------------------------------------------
     def __enter__(self) -> "PilotSession":
@@ -163,6 +192,13 @@ class PilotSession:
         if self._closed:
             return
         self._closed = True
+        # the fleet-resizing loops stop before the supervisor: a drain
+        # mid-flight finishes or aborts while the failure detector can
+        # still tell a released pilot from a dead one
+        if self._autoscaler is not None:
+            self._autoscaler.close()
+        if self._rebalancer is not None:
+            self._rebalancer.close()
         if self._supervisor is not None:
             self._supervisor.close()
         self.data_service.drain(timeout=30)
@@ -365,6 +401,10 @@ class PilotSession:
                "transport": _transport_stats.snapshot()}
         if self._supervisor is not None:
             out["supervisor"] = self._supervisor.stats()
+        if self._autoscaler is not None:
+            out["autoscaler"] = self._autoscaler.stats()
+        if self._rebalancer is not None:
+            out["rebalancer"] = self._rebalancer.stats()
         return out
 
     def __repr__(self) -> str:

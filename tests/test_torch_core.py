@@ -2,8 +2,8 @@
 
 The device tier's mutation contract, LocalityPolicy scores (bit for bit
 on the scenarios of test_scheduling.py), map_reduce on the host and
-device tiers, the device rules of the entry points, the features left to
-a later slice, and the port's independence from JAX at runtime.
+device tiers, the device rules of the entry points, the elastic layers'
+presence, and the port's independence from JAX at runtime.
 """
 import os
 import subprocess
@@ -202,16 +202,32 @@ def test_default_device_raises_without_cuda(entry):
 
 
 @pytest.mark.parametrize("ask", ["autoscale", "rebalance", "simulated"])
-def test_slice_two_features_raise_not_implemented(ask):
+def test_elastic_features_build_on_the_cpu(ask):
+    """The elastic layers and the simulated backend exist on the port: the
+    session builds and exposes its autoscaler/rebalancer, and
+    get_backend("simulated") provisions a simulated pilot."""
+    from repro_torch.core.backends.base import get_backend
+    from repro_torch.core.backends.simulated import (SimulatedClusterBackend,
+                                                     SimulatedPilot)
     if ask == "simulated":
+        assert isinstance(get_backend("simulated"), SimulatedClusterBackend)
         with port_core.PilotSession(device="cpu") as s:
-            with pytest.raises(NotImplementedError,
-                               match="Resilience and elasticity"):
-                s.add_pilot(backend="simulated")
+            p = s.add_pilot(backend="simulated", startup_seconds=0.01)
+            assert isinstance(p, SimulatedPilot)
+            assert p.devices == [torch.device("cpu")]
         return
-    with pytest.raises(NotImplementedError,
-                       match="Resilience and elasticity"):
-        port_core.PilotSession(device="cpu", **{ask: True})
+    with port_core.PilotSession(device="cpu", **{ask: True}) as s:
+        layer = getattr(s, {"autoscale": "autoscaler",
+                            "rebalance": "rebalancer"}[ask])
+        other = getattr(s, {"autoscale": "rebalancer",
+                            "rebalance": "autoscaler"}[ask])
+        cls = {"autoscale": port_core.Autoscaler,
+               "rebalance": port_core.Rebalancer}[ask]
+        assert isinstance(layer, cls) and other is None
+        assert layer._thread.is_alive()
+        assert {"autoscale": "autoscaler",
+                "rebalance": "rebalancer"}[ask] in s.stats()
+    assert not layer._thread.is_alive()     # closed with the session
 
 
 def test_port_runs_kmeans_without_jax_or_the_reference():
