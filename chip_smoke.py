@@ -62,6 +62,17 @@ kernels' launch counts set to 0 just before and read just after:
   and the training scan's time.  Training launches none of the four
   kernels (they are forward-only, and the JAX package trains through none
   of its Pallas kernels): each count is 0, and is asserted so.
+- sharded training (after training): the same Llama-3.2-1B run through
+  ``launch.train.run`` under a one-rank NCCL process group, so over a
+  ("data", "model") mesh of (1, 1): the state as DTensors placed by the
+  logical-axis rules, the sharded step (gather, the same forward and
+  backward, reduce-scatter, AdamW on the shards); its losses and grad
+  norms held bit for bit to the unsharded run's, its ms per step and
+  peak memory beside that run's, its gathered checkpoint restored through
+  ``restore(shardings=)`` bit for bit, and ``compressed_pod_mean`` run on
+  a step's gradients over a pod axis of 1 (relative error under 0.02,
+  nonzero residual); no kernel, each count asserted 0; the group is
+  destroyed before the next phase.
 - resilient training: the 100m preset's train step through
   ``runtime.fault_tolerance.ResilientRunner``, 12 steps on a simulated
   pilot lost after 7 (one recovery from the step-4 checkpoint), held to
@@ -1873,6 +1884,7 @@ def training_phase(torch, kernels: dict) -> dict:
             "model_flops_share_of_989T": flops / med / PEAK_BF16_FLOPS,
             "peak_bytes": run.peak_bytes, "first_loss": run.losses[0],
             "last5_mean_loss": last5, "losses": run.losses,
+            "grad_norms": run.grad_norms,
             "run_wall_s": wall, "checkpoint": ckpt, "trace": trace}
     log(f"training llama3.2-1b (published config, {cfg.num_params()} "
         f"parameters, bf16, fp32 AdamW, remat full) on a pilot: 30 steps "
@@ -1921,6 +1933,167 @@ def training_phase(torch, kernels: dict) -> dict:
     return {"card_vs_cpu": card_cpu, "bf16_vs_fp32": mixed, "full": full,
             "recovery": recovery,
             "options": options, "launches": launches, "scan": scan}
+
+
+# -- the sharded training phase ---------------------------------------------
+# the training phase's Llama-3.2-1B run again, through launch.train under a
+# one-rank NCCL process group: a ("data", "model") mesh of (1, 1), the state
+# as DTensors, the sharded step; then compressed_pod_mean over a pod axis of
+# 1 on a step's gradients, held to the reference test's bound
+COMPRESSION_REL_BOUND = 0.02
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_training_phase(torch, kernels: dict, unsharded: dict) -> dict:
+    """Trains Llama-3.2-1B at its published config through
+    ``launch.train.run`` over a one-rank NCCL mesh, the same 30 steps of
+    the same batches as the unsharded run of `training_phase` (whose
+    record is `unsharded`), and holds its losses and grad norms to that
+    run's; its checkpoint (gathered, written by rank 0) restores through
+    ``restore(shardings=)`` bit for bit; ``compressed_pod_mean`` runs on
+    a step's gradients over a (1, 1, 1) pod x data x model mesh.  No
+    kernel launches (asserted by the counts)."""
+    import datetime
+    import shutil
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.compression import (compressed_pod_mean,
+                                               init_residuals)
+    from repro_torch.train import steps as steps_mod
+    ckpt_root = ROOT / "build" / "sharded_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
+    torch.cuda.set_device(0)
+    port = free_port()
+    dist.init_process_group(                  # a failure here raises
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=600))
+    try:
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        run = train_mod.run(TRAIN_ARGV + ["--ckpt-dir", str(ckpt_root)])
+        wall = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        assert not any(launches.values()), ("sharded training launched a "
+                                            "kernel", launches)
+        mesh = run.mesh
+        assert mesh is not None and tuple(mesh.shape) == (1, 1), mesh
+        assert tuple(mesh.mesh_dim_names) == ("data", "model")
+        assert type(run.state.params["embed"]).__name__ == "DTensor"
+        pairs = {"loss": (run.losses, unsharded["losses"]),
+                 "grad_norm": (run.grad_norms, unsharded["grad_norms"])}
+        diffs = {k: max(abs(a - b) for a, b in zip(*v))
+                 for k, v in pairs.items()}
+        bit_equal = {k: v[0] == v[1] for k, v in pairs.items()}
+        assert len(run.losses) == len(unsharded["losses"]) == 30
+        log(f"sharded training, largest difference to the unsharded run: "
+            f"{diffs}; bit-equal {bit_equal}")
+        assert all(bit_equal.values()), (
+            "a one-rank mesh must train bit for bit as one device", diffs)
+        med = float(np.median(run.step_s[1:]))
+        med10 = float(np.median(run.step_s[1:10]))
+        unsharded_med10 = float(np.median(unsharded["step_ms"][1:10]))
+        # the checkpoint: gathered, written by rank 0, restored by shard
+        info = run.ckpt.write_log[-1]
+        t1 = time.perf_counter()
+        restored, step = run.ckpt.restore(
+            run.state, shardings=steps_mod.train_state_shardings(
+                run.model, mesh))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        assert step == 30, step
+        for a, b in zip(tree_leaves(restored), tree_leaves(run.state)):
+            assert type(a) is type(b)
+            a = a.to_local() if hasattr(a, "to_local") else a
+            b = b.to_local() if hasattr(b, "to_local") else b
+            assert a.dtype == b.dtype and a.shape == b.shape and a.is_cuda
+            bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                a.element_size()]
+            assert torch.equal(a.view(bits), b.view(bits)), "restore differs"
+        del restored
+        # EF-int8 compression of a step's gradients over a pod axis of 1
+        pod_mesh = init_device_mesh("cuda", (1, 1, 1),
+                                    mesh_dim_names=("pod", "data", "model"))
+        params = steps_mod.gather_state(run.state.params)
+        batch = train_batch(torch, run.cfg, TRAIN_BATCH, TRAIN_SEQ, 7, "cuda")
+        _, grads = steps_mod.loss_and_grads(run.model, params, batch,
+                                            run.tcfg)
+        del params, batch
+        # twice: the first call also sets up the pod group's communicator
+        times = []
+        for _ in range(2):
+            residuals = init_residuals(grads)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            means, residuals = compressed_pod_mean(grads, residuals,
+                                                   pod_mesh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        compress_ms = times[-1]
+        rel = max(float((m.float() - g.float()).abs().max())
+                  / max(float(g.float().abs().max()), 1e-30)
+                  for m, g in zip(tree_leaves(means), tree_leaves(grads)))
+        res_norm = math.sqrt(sum(float(r.square().sum())
+                                 for r in tree_leaves(residuals)))
+        assert rel < COMPRESSION_REL_BOUND and res_norm > 0, (rel, res_norm)
+        grad_bytes = sum(g.numel() * g.element_size()
+                         for g in tree_leaves(grads))
+        del grads, means, residuals
+        row = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "backend": dist.get_backend(), "steps": len(run.losses),
+               "losses": run.losses, "grad_norms": run.grad_norms,
+               "max_abs_diff_vs_unsharded": diffs, "bit_equal": bit_equal,
+               "median_step_ms": med * 1e3,
+               "unsharded_median_step_ms": unsharded["median_step_ms"],
+               "median_step_ms_2_10": med10 * 1e3,
+               "unsharded_median_step_ms_2_10": unsharded_med10,
+               "step_ms": [t * 1e3 for t in run.step_s],
+               "peak_bytes": run.peak_bytes,
+               "unsharded_peak_bytes": unsharded["peak_bytes"],
+               "run_wall_s": wall, "launches": launches,
+               "checkpoint": {"step": info["step"], "bytes": info["bytes"],
+                              "snapshot_s": info["snapshot_s"],
+                              "write_s": info["write_s"],
+                              "restore_s": restore_s,
+                              "restore_bit_equal": True},
+               "compression": {"mesh": {"pod": 1, "data": 1, "model": 1},
+                               "max_rel_err": rel, "bound":
+                               COMPRESSION_REL_BOUND,
+                               "residual_norm": res_norm,
+                               "grad_bytes": grad_bytes, "ms": compress_ms,
+                               "first_call_ms": times[0]}}
+        log(f"sharded training llama3.2-1b (published config) over a "
+            f"one-rank NCCL mesh {row['mesh']}: 30 steps in {wall:.3f} s; "
+            f"median step {med * 1e3:.3f} ms against "
+            f"{unsharded['median_step_ms']:.3f} unsharded (steps 2-30), "
+            f"{med10 * 1e3:.3f} against {unsharded_med10:.3f} (steps "
+            f"2-10); peak device "
+            f"memory {run.peak_bytes / 1e9:.3f} GB against "
+            f"{unsharded['peak_bytes'] / 1e9:.3f}; losses and grad norms "
+            f"bit-equal to the unsharded run; checkpoint "
+            f"{info['bytes']} bytes (snapshot {info['snapshot_s']:.3f} s, "
+            f"write {info['write_s']:.3f} s), restore(shardings=) "
+            f"{restore_s:.3f} s, bit for bit; compressed_pod_mean over "
+            f"{grad_bytes} bytes of gradients in {compress_ms:.3f} ms (first "
+            f"call {times[0]:.3f} ms), max "
+            f"relative error {rel:.6f} (bound {COMPRESSION_REL_BOUND}), "
+            f"residual norm {res_norm:.6f}; kernel launches {launches}")
+        del run
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return row
 
 
 # -- the elastic phases -------------------------------------------------------
@@ -2689,6 +2862,10 @@ def main() -> int:
     train_launches = training["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    # -- 6b'. the same training over a one-rank NCCL mesh ------------------
+    training["sharded"] = sharded_training_phase(torch, all_kernels,
+                                                 training["full"])
+    sharded_launches = training["sharded"]["launches"]
     # -- 6c. the train step through the resilient runner -------------------
     resilient = resilient_training_phase(torch, all_kernels)
     gc.collect()
@@ -2870,10 +3047,12 @@ def main() -> int:
             ("whisper_base serving", wserve["launches"]),
             ("deepseek_v3_671b serving", dserve["launches"]))} | {
         "llama3_2_1b training": train_launches[name],
+        "llama3_2_1b sharded training": sharded_launches[name],
         "resilient training (100m)": resilient["launches"][name]}
     for name in ("kmeans_assign", "decode_attention", "flash_attention",
                  "selective_scan"):
         assert train_launches[name] == 0, (name, train_launches)
+        assert sharded_launches[name] == 0, (name, sharded_launches)
         assert resilient["launches"][name] == 0, (name, resilient)
     log(card)
     log(json.dumps({"training": training}))
@@ -2889,6 +3068,8 @@ def main() -> int:
             "kmeans elastic, undisturbed": ekmeans["launches_undisturbed"],
             "kmeans elastic, pilot lost": ekmeans["launches"],
             "llama3_2_1b training": train_launches["kmeans_assign"],
+            "llama3_2_1b sharded training":
+            sharded_launches["kmeans_assign"],
             "resilient training (100m)":
             resilient["launches"]["kmeans_assign"]},
         "checked": True,

@@ -14,8 +14,15 @@ package restores in the other bit for bit:
   with the dtype named in the manifest ("bfloat16").  numpy has no bf16 of
   its own; the bits are moved as uint16, so no ``ml_dtypes`` is needed.
 
-``restore(shardings=)``, the JAX package's elastic re-mesh onto another
-mesh, is not ported: the port has no mesh yet.
+A sharded state (DTensor leaves, ``train.steps.shard_train_state``) is
+saved whole: ``save`` gathers every leaf, a collective that every rank of
+the mesh makes, and only the rank at the mesh's origin (rank 0 of the
+mesh) writes, in the same format; the background writer runs no
+collective.  Another rank returns once the gather is done, so a rank that
+reads the checkpoint back meets the writer at a barrier first.
+``restore(like, step, shardings=)`` is the elastic re-mesh: each leaf
+with a ``NamedSharding`` goes onto its (mesh, placements), each rank
+reading only its own shard out of the file, so nothing is broadcast.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.models.common import tree_map, tree_node
+from repro_torch.models.common import tree_leaves, tree_node, tree_unflatten
+from repro_torch.parallel.sharding import from_local, local_slice, mesh_device
 
 # dtypes numpy can't hold -> stored as a same-width unsigned integer view
 _EXTENDED = {"bfloat16": (torch.bfloat16, np.uint16),
@@ -94,9 +102,22 @@ class CheckpointManager:
     def save(self, step: int, state, blocking: bool = True) -> Path:
         """Snapshot to host memory synchronously, write to disk (optionally
         in the background so the next train step overlaps the I/O)."""
+        from torch.distributed.tensor import DTensor
         self.wait()  # never two writers in flight (same-step dir races)
         t0 = time.time()
-        host = {k: _encode(v) for k, v in _named(state).items()}
+        named = _named(state)
+        meshes = [v.device_mesh for v in named.values()
+                  if isinstance(v, DTensor)]
+        writer = not meshes or not any(meshes[0].get_coordinate())
+        host = {}
+        for k, v in named.items():         # one whole leaf at a time
+            if isinstance(v, DTensor):
+                v = v.full_tensor()
+            if writer:
+                host[k] = _encode(v)
+            del v
+        if not writer:
+            return self._step_dir(step)
         snap_t = time.time() - t0
 
         def write():
@@ -149,8 +170,10 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     def list_steps(self):
+        """The steps written whole (not a ``.tmp`` directory a writer,
+        maybe another rank's, is still filling)."""
         return [int(p.name.split("_")[1]) for p in self.root.glob("step_*")
-                if p.is_dir()]
+                if p.is_dir() and p.name.split("_")[1].isdigit()]
 
     def latest_step(self) -> Optional[int]:
         steps = self.list_steps()
@@ -158,10 +181,13 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def restore(self, like, step: Optional[int] = None,
-                device: DeviceLike = None):
+                device: DeviceLike = None, shardings=None):
         """Restore into the structure of `like` (a tree of tensors; its
-        QTensors keep their shapes) -> (state, step).  Each leaf goes to
-        `device`, else to the device of `like`'s leaf."""
+        QTensors keep their shapes) -> (state, step).  `shardings` is a
+        tree of that structure whose leaves are ``NamedSharding`` (the
+        leaf becomes a DTensor on that mesh: this rank's shard, read out
+        of the file) or None; a leaf without one goes to `device`, else to
+        the device of `like`'s leaf."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -169,11 +195,25 @@ class CheckpointManager:
         d = self._step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
         dev = None if device is None else resolve_device(device)
-        names = iter(_named(like))
+        named = _named(like)
+        shs = (tree_leaves(shardings) if shardings is not None
+               else [None] * len(named))
+        if len(shs) != len(named):
+            raise ValueError("restore: shardings and like differ in leaves")
 
-        def load(leaf):
-            info = manifest["leaves"][next(names)]
-            return _decode(np.load(d / info["file"]), info["dtype"],
-                           dev if dev is not None else leaf.device)
+        def load(name, leaf, sh):
+            info = manifest["leaves"][name]
+            if sh is None:
+                return _decode(np.load(d / info["file"]), info["dtype"],
+                               dev if dev is not None else leaf.device)
+            arr = np.load(d / info["file"], mmap_mode="r")
+            # a copy: the rank's shard is read, and the tensor never maps
+            # the file (AdamW writes its state in place)
+            local = np.array(local_slice(arr, sh.mesh, sh.placements))
+            return from_local(_decode(local, info["dtype"],
+                                      mesh_device(sh.mesh)),
+                              sh.mesh, sh.placements, arr.shape)
 
-        return tree_map(load, like), step
+        return tree_unflatten(like, [
+            load(name, leaf, sh)
+            for (name, leaf), sh in zip(named.items(), shs)]), step

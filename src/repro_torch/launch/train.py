@@ -13,6 +13,17 @@ submits a new one and restarts from the last checkpoint.  It runs on the
 card unless ``--device cpu`` is given; ``main()`` returns the final loss,
 ``run()`` the whole record of the run.
 
+Over a device mesh: when a process group is up, or ``torchrun``'s
+environment names one (``torchrun --nproc-per-node N -m
+repro_torch.launch.train ...``; NCCL on the card, each rank on its
+``LOCAL_RANK`` card, gloo on the CPU), every rank forms
+``make_local_mesh(--model-parallel)``, submits its own pilot on its
+device, holds its shards of the state (``steps.shard_train_state``),
+steps through ``steps.make_sharded_train_step`` on its slice of the
+pipeline's global batch (every rank reads the same batches), saves
+through the gathering checkpoint and restores through
+``restore(shardings=)``.  Rank 0 prints; every rank returns the run.
+
 Presets scale the *width/depth* of the chosen architecture family while
 keeping its structure (GQA ratios, MoE top-k, SSM dims), so every assigned
 arch has a runnable small variant: smoke (~1M), 20m, 100m, or the published
@@ -30,6 +41,7 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
@@ -39,6 +51,8 @@ from repro_torch.core import (ComputeDataManager, PilotComputeDescription,
                               PilotComputeService, make_backend,
                               resolve_device, to_device)
 from repro_torch.data.pipeline import BatchPipeline, corpus_data_unit
+from repro_torch.launch.mesh import (host_device_grid, init_distributed,
+                                     make_local_mesh)
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.model import Model, build_model
 from repro_torch.train import steps as steps_mod
@@ -98,9 +112,11 @@ class TrainRun:
     ckpt: CheckpointManager         # its write_log holds each save
     losses: List[float]             # per step run (a restart repeats some;
     #                                 nan alone where no step ran)
+    grad_norms: List[float]         # per step run, beside `losses`
     step_s: List[float]             # host seconds per step, synchronised
     peak_bytes: Optional[int]       # max_memory_allocated (the card only)
     tokens_per_step: int
+    mesh: Any = None                # the DeviceMesh of a sharded run
 
     @property
     def loss(self) -> float:
@@ -125,16 +141,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="inject a pilot failure at this step (demo)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the mesh's model axis, under a process group")
     return ap.parse_args(argv)
 
 
 def run(argv=None) -> TrainRun:
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    owned = init_distributed(dev)
+    mesh = make_local_mesh(args.model_parallel) if dist.is_initialized() \
+        else None
+    rank = dist.get_rank() if mesh is not None else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = scaled_config(args.arch, args.preset)
     model = build_model(cfg)
     n_params = sum(int(np.prod(s.shape)) for s in tree_leaves(model.specs))
-    print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, device={dev}")
+    say(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, device={dev}"
+        + ("" if mesh is None else f", mesh {host_device_grid(mesh)}"))
 
     # --- pilot: retained resources for the whole run ---
     svc = PilotComputeService()
@@ -143,9 +170,10 @@ def run(argv=None) -> TrainRun:
     pilot = svc.submit_pilot(desc)
     manager = ComputeDataManager(svc)
 
-    # --- data: file tier -> host tier -> batches ---
-    backends = {"file": make_backend("file", root=str(Path(args.ckpt_dir)
-                                                      / "corpus")),
+    # --- data: file tier -> host tier -> batches (each rank its own) ---
+    corpus_dir = Path(args.ckpt_dir) / ("corpus" if mesh is None
+                                        else f"corpus_rank{rank}")
+    backends = {"file": make_backend("file", root=str(corpus_dir)),
                 "host": make_backend("host")}
     du = corpus_data_unit("corpus", cfg,
                           num_tokens=max(2_000_000, 4 * args.batch
@@ -158,21 +186,29 @@ def run(argv=None) -> TrainRun:
                           opt_state_dtype=args.opt_dtype)
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(10, args.steps // 20))
-    build_step = lambda: steps_mod.make_train_step(model, pcfg, tcfg)
-    step_fn = pilot.jit_cached(("train_step", cfg.name), build_step)
     state = steps_mod.init_train_state(
         model, torch.Generator(device=dev).manual_seed(tcfg.seed), pcfg,
         device=dev)
+    if mesh is None:
+        shardings = None
+        build_step = lambda: steps_mod.make_train_step(model, pcfg, tcfg)
+    else:
+        shardings = steps_mod.train_state_shardings(model, mesh)
+        state = steps_mod.shard_train_state(state, shardings)
+        build_step = lambda: steps_mod.make_sharded_train_step(
+            model, pcfg, tcfg, mesh)
+    step_fn = pilot.jit_cached(("train_step", cfg.name), build_step)
     ckpt = CheckpointManager(Path(args.ckpt_dir) / cfg.name)
 
     start = 0
     if ckpt.latest_step() is not None:
-        state, start = ckpt.restore(state)
-        print(f"[train] restored step {start}")
+        state, start = ckpt.restore(state, shardings=shardings)
+        say(f"[train] restored step {start}")
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses: List[float] = []
+    gnorms: List[float] = []
     t_hist: List[float] = []
     failed_once = False
     step = start
@@ -181,13 +217,13 @@ def run(argv=None) -> TrainRun:
             batch = {k: to_device(v, dev) for k, v in next(pipe).items()}
             if args.failure_at and step == args.failure_at and not failed_once:
                 failed_once = True
-                print(f"[train] !!! injecting pilot failure at step {step}")
+                say(f"[train] !!! injecting pilot failure at step {step}")
                 svc.release(pilot)
                 pilot = svc.submit_pilot(desc)
                 step_fn = pilot.jit_cached(("train_step", cfg.name),
                                            build_step)
-                state, step = ckpt.restore(state)
-                print(f"[train] recovered at step {step}")
+                state, step = ckpt.restore(state, shardings=shardings)
+                say(f"[train] recovered at step {step}")
                 continue
             t0 = time.perf_counter()
             cu = manager.run(lambda s=state, b=batch: step_fn(s, b),
@@ -196,30 +232,39 @@ def run(argv=None) -> TrainRun:
             losses.append(float(metrics["loss"]))       # waits for the step
             dt = time.perf_counter() - t0
             t_hist.append(dt)
+            gnorms.append(float(metrics["grad_norm"]))
             step += 1
             if step % args.log_every == 0 or step == 1:
                 mem = (f" peak={torch.cuda.max_memory_allocated(dev)/1e9:.2f}GB"
                        if dev.type == "cuda" else "")
-                print(f"[train] step {step:5d} loss={losses[-1]:.4f} "
-                      f"gnorm={float(metrics['grad_norm']):.3f} "
-                      f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms{mem}")
+                say(f"[train] step {step:5d} loss={losses[-1]:.4f} "
+                    f"gnorm={gnorms[-1]:.3f} "
+                    f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms{mem}")
             if step % args.ckpt_every == 0:
                 ckpt.save(step, state, blocking=False)
         ckpt.save(args.steps, state, blocking=True)
+        if mesh is not None:
+            # every rank returns once rank 0's checkpoint is on disk (and
+            # none leaves while a peer still sends)
+            dist.barrier()
     finally:
         pipe.close()
         svc.cancel_all()
+        if owned:
+            dist.destroy_process_group()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     med = float(np.median(t_hist)) if t_hist else 0.0
     tokens_s = args.batch * args.seq / med if med else 0.0
     if not losses:          # restored at the last step: nothing to run
         losses.append(float("nan"))
-    print(f"[train] done: median step {med*1e3:.0f}ms, {tokens_s:.0f} tok/s, "
-          f"final loss {losses[-1]:.4f}"
-          + (f", peak device memory {peak/1e9:.2f}GB" if peak else ""))
+    say(f"[train] done: median step {med*1e3:.0f}ms, {tokens_s:.0f} tok/s, "
+        f"final loss {losses[-1]:.4f}"
+        + (f", peak device memory {peak/1e9:.2f}GB" if peak else ""))
     return TrainRun(cfg=cfg, model=model, pcfg=pcfg, tcfg=tcfg, device=dev,
-                    state=state, ckpt=ckpt, losses=losses, step_s=t_hist,
-                    peak_bytes=peak, tokens_per_step=args.batch * args.seq)
+                    state=state, ckpt=ckpt, losses=losses, grad_norms=gnorms,
+                    step_s=t_hist, peak_bytes=peak,
+                    tokens_per_step=args.batch * args.seq,
+                    mesh=None if owned else mesh)
 
 
 def main(argv=None) -> float:

@@ -3,11 +3,15 @@
 The port of ``repro/models/common.py``.  Models are plain functions on
 tensors: ``*_specs(cfg)`` returns a nested dict of ParamSpec (shape +
 logical axes + initializer + dtype); ``init_params`` materializes it on a
-device from an explicit ``torch.Generator``.  The math keeps the JAX
-package's casts: fp32 inside the norm, RoPE and the activation, then back
-to the activation dtype.  ``with_logical_constraint`` has no counterpart
-(it is a no-op without a mesh).  ``cross_entropy_loss`` is the training
-loss: an fp32 log-sum-exp with the optional z-loss and mask.
+device from an explicit ``torch.Generator``; ``abstract_params`` gives
+meta-device tensors of the same shapes and dtypes (the JAX package's
+``ShapeDtypeStruct`` tree) and ``param_pspecs`` the PartitionSpec of each
+leaf on a mesh.  The math keeps the JAX package's casts: fp32 inside the
+norm, RoPE and the activation, then back to the activation dtype.  The
+models call no ``with_logical_constraint``: they run on whole tensors
+(``train.steps.make_sharded_train_step`` gathers the params first).
+``cross_entropy_loss`` is the training loss: an fp32 log-sum-exp with
+the optional z-loss and mask.
 """
 from __future__ import annotations
 
@@ -130,6 +134,19 @@ def init_params(spec_tree, generator: torch.Generator,
     """Materialize a ParamSpec tree on `device`, drawing from `generator`
     (which must live on `device`) leaf by leaf in sorted-key order."""
     return tree_map(lambda s: _init_leaf(s, generator, device), spec_tree)
+
+
+def abstract_params(spec_tree):
+    """The spec tree as meta-device tensors: shapes and dtypes, no data."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree)
+
+
+def param_pspecs(spec_tree, mesh, rules):
+    """The PartitionSpec of each leaf on `mesh` under `rules`."""
+    from repro_torch.parallel.sharding import resolve_pspec
+    return tree_map(lambda s: resolve_pspec(s.logical, s.shape, mesh, rules),
+                    spec_tree)
 
 
 # ---------------------------------------------------------------------------

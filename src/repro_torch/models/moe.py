@@ -8,7 +8,11 @@ plus shared experts, sigmoid router with the aux-free bias, which moves
 the selection only, and ``router_scale``).  What differs from the JAX
 package:
 
-- the sharding constraints are gone (no mesh in the port yet);
+- the sharding constraints are gone: the models run on whole tensors
+  (a sharded step gathers the params), and the one batch-wide quantity
+  the loss is not linear in, the Switch aux loss's dispatch fractions,
+  goes through ``parallel.sharding.batch_mean`` (the global batch's mean
+  under a sharded step);
 - top-k takes the experts in a stable descending sort, so that equal
   scores keep the lower expert first, as ``jax.lax.top_k`` does
   (``torch.topk`` promises no order among ties);
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.common import ParamSpec, linear, swiglu
+from repro_torch.parallel.sharding import batch_mean
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -81,9 +86,14 @@ def _route(params, x: torch.Tensor, e: MoEConfig):
         probs = torch.softmax(logits, dim=-1)
         w, idx = _top_k(probs, e.top_k)
         w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-        # Switch-style load-balance loss (per group, then averaged)
+        # Switch-style load-balance loss (per group, then averaged), over
+        # the whole batch: under a sharded step each rank holds a slice,
+        # and `batch_mean` gives the global dispatch fractions; aux is
+        # then linear in `me`, so the ranks' mean of their aux is the
+        # global batch's
         me = probs.mean(dim=(0, 1))                                # (E,)
-        fe = F.one_hot(idx[..., 0], e.num_experts).float().mean(dim=(0, 1))
+        fe = batch_mean(F.one_hot(idx[..., 0], e.num_experts).float()
+                        .mean(dim=(0, 1)))
         aux = e.num_experts * torch.sum(me * fe)
     return w, idx, aux
 

@@ -9,8 +9,8 @@ and holds its Pallas kernel to the same recurrence.  Training
 (``train=True``) runs that chunked scan, `chunked_scan`: the kernel is
 forward-only.  Decode is one step of the recurrence in plain torch, as in
 the JAX package, and writes the conv history and the state into the cache
-in place.  ``with_logical_constraint`` has no counterpart (it is a no-op
-without a mesh).
+in place.  The reference's ``with_logical_constraint`` call is not made:
+the models run on whole tensors (a sharded step gathers the params).
 """
 from __future__ import annotations
 

@@ -83,10 +83,13 @@ def _moment(old, new: torch.Tensor, dtype: str, second_moment: bool):
 
 @torch.no_grad()
 def adamw_update(grads, opt_state: OptState, params, lr: torch.Tensor,
-                 cfg: TrainConfig, state_dtype: str = "float32"):
+                 cfg: TrainConfig, state_dtype: str = "float32",
+                 gnorm: torch.Tensor | None = None):
     """One AdamW step.  `grads` and `params` are trees of one structure,
-    `lr` an fp32 0-d tensor (``warmup_cosine``).  Returns (params,
-    OptState, grad_norm): the same param tensors, updated in place."""
+    `lr` an fp32 0-d tensor (``warmup_cosine``).  `gnorm` is the global
+    gradient norm where the caller holds only shards of the leaves (a
+    sharded step), else it is computed here.  Returns (params, OptState,
+    grad_norm): the same param tensors, updated in place."""
     count = opt_state.count + 1
     b1, b2 = cfg.beta1, cfg.beta2
     c1 = 1.0 - b1 ** count.float()
@@ -101,7 +104,8 @@ def adamw_update(grads, opt_state: OptState, params, lr: torch.Tensor,
 
     # global-norm clip (fp32)
     if cfg.grad_clip:
-        gnorm = torch.sqrt(sum(g.float().square().sum() for g in flat_g))
+        if gnorm is None:
+            gnorm = torch.sqrt(sum(g.float().square().sum() for g in flat_g))
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
     else:

@@ -1,0 +1,332 @@
+"""Logical-axis sharding rules (t5x-style) with divisibility-aware fallback.
+
+The port of ``repro/parallel/sharding.py``.  Every parameter / activation
+declares *logical* axis names; a rule table maps them to mesh axes.
+``resolve_pspec`` drops mesh axes that do not divide the dimension (e.g.
+kv_heads=8 over a 16-way "model" axis) and never assigns the same mesh
+axis to two dims of one tensor — later dims fall back to the next
+alternative rule.  It is pure Python over ``{axis: size}``: it takes a
+``torch.distributed`` ``DeviceMesh`` or the device-less mesh of
+``launch.mesh.make_abstract_mesh`` (anything with ``mesh_dim_names`` and
+``shape``), and returns the port's own ``PartitionSpec``.
+
+What is new in the port: a ``PartitionSpec`` becomes DTensor placements
+through ``placements`` (one ``Shard``/``Replicate`` per mesh dimension),
+and ``shard_tensor``/``local_slice`` cut a whole tensor (or a host array)
+into the calling rank's shard of those placements with no collective.
+A tuple entry such as ``("pod", "data")`` on tensor dim 0 shards that dim
+over both mesh dimensions, the first named outermost: JAX's
+``P(("pod", "data"))``, which is DTensor's order when the axes come in
+the mesh's own order (the only order the port accepts).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+# Each logical axis may have several alternatives, tried in order.
+Rule = Tuple[str, MeshAxes]
+
+
+DEFAULT_RULES: Tuple[Rule, ...] = (
+    # --- activations ---
+    ("batch", ("pod", "data")),
+    ("seq", None),                  # query sequence (train/prefill)
+    ("kv_seq", "model"),            # decode KV-cache sequence (flash-decoding style)
+    ("long_seq", ("data", "model")),  # 500k decode cache, batch=1
+    ("act_embed", None),
+    ("act_heads", "model"),
+    ("act_kv_heads", "model"),
+    ("act_head_dim", None),
+    ("act_mlp", "model"),
+    ("act_vocab", "model"),
+    ("act_expert", "model"),
+    ("act_ssm_inner", "model"),
+    ("moe_group", ("pod", "data")),   # MoE dispatch-buffer group dim (scatter side)
+    ("moe_group2", ("pod", "data")),  # ...compute side (EP-2D overrides to None)
+    ("act_expert2", "model"),         # ...compute side (EP-2D: ("model","data"))
+    ("moe_cap", None),                # MoE capacity dim
+
+    # --- params ---
+    ("vocab", "model"),
+    ("embed", "data"),              # FSDP: shard params' d_model dim over data
+    ("heads", "model"),
+    ("kv_heads", "model"),          # falls back (replicate) when kv < |model|
+    ("head_dim", None),
+    ("mlp", "model"),
+    ("expert", "model"),
+    ("expert_embed", "data"),
+    ("expert_mlp", "model"),        # used when "expert" could not take the axis
+    ("ssm_inner", "model"),
+    ("ssm_state", None),
+    ("dt_rank", None),
+    ("conv_k", None),
+    ("mla_rank", None),
+    ("layers", None),
+    ("stack", None),
+)
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: ``None`` (replicated), a mesh axis name,
+    or a tuple of names (the dim split over all of them, outermost
+    first); trailing ``None`` entries are dropped, as JAX's ``P`` is
+    built by ``resolve_pspec``."""
+
+    def __new__(cls, *entries: MeshAxes):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """Where a tensor lives: a mesh and one placement per mesh dim (a
+    leaf, not a node, of the port's trees)."""
+    mesh: object
+    placements: tuple
+
+
+def _as_tuple(axes: MeshAxes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    if isinstance(axes, str):
+        return (axes,)
+    return tuple(axes)
+
+
+def axis_sizes(mesh) -> dict:
+    """{mesh axis name: size} of a DeviceMesh or an abstract mesh."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+class AxisRules:
+    """Ordered logical->mesh mapping. Later entries with the same logical name
+    act as fallback alternatives."""
+
+    def __init__(self, rules: Sequence[Rule] = DEFAULT_RULES):
+        self.rules: Tuple[Rule, ...] = tuple(rules)
+
+    def alternatives(self, logical: str) -> Tuple[MeshAxes, ...]:
+        alts = tuple(axes for name, axes in self.rules if name == logical)
+        return alts if alts else (None,)
+
+    def override(self, *new_rules: Rule) -> "AxisRules":
+        """New rules take priority (prepended)."""
+        return AxisRules(tuple(new_rules) + self.rules)
+
+    def replacing(self, logical: str, axes: MeshAxes) -> "AxisRules":
+        kept = tuple(r for r in self.rules if r[0] != logical)
+        return AxisRules(((logical, axes),) + kept)
+
+
+_ctx = threading.local()
+
+
+class sharding_context:
+    """Install (mesh, rules) for with_logical_constraint inside model code."""
+
+    def __init__(self, mesh, rules: Optional[AxisRules] = None):
+        self.mesh = mesh
+        self.rules = rules or AxisRules()
+
+    def __enter__(self):
+        self._prev = getattr(_ctx, "cur", None)
+        _ctx.cur = self
+        return self
+
+    def __exit__(self, *exc):
+        _ctx.cur = self._prev
+
+
+def current_context() -> Optional["sharding_context"]:
+    return getattr(_ctx, "cur", None)
+
+
+def resolve_pspec(
+    logical_dims: Sequence[Optional[str]],
+    shape: Sequence[int],
+    mesh,
+    rules: AxisRules,
+) -> PartitionSpec:
+    """Build a PartitionSpec, honoring divisibility and no-axis-reuse."""
+    assert len(logical_dims) == len(shape), (logical_dims, shape)
+    used: set = set()
+    out = []
+    sizes = axis_sizes(mesh)
+    for logical, dim in zip(logical_dims, shape):
+        chosen: MeshAxes = None
+        if logical is not None:
+            for alt in rules.alternatives(logical):
+                axes = tuple(a for a in _as_tuple(alt)
+                             if a in sizes and a not in used)
+                if not axes:
+                    continue
+                total = int(np.prod([sizes[a] for a in axes]))
+                if dim % total == 0:
+                    chosen = axes if len(axes) > 1 else axes[0]
+                    used.update(axes)
+                    break
+                # try a prefix of the axis tuple (e.g. ("data","model")->("data",))
+                for k in range(len(axes) - 1, 0, -1):
+                    sub = axes[:k]
+                    total = int(np.prod([sizes[a] for a in sub]))
+                    if dim % total == 0:
+                        chosen = sub if len(sub) > 1 else sub[0]
+                        used.update(sub)
+                        break
+                if chosen is not None:
+                    break
+        out.append(chosen)
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
+def placements(pspec: Sequence[MeshAxes], mesh) -> list:
+    """The DTensor placements of `pspec` on `mesh`: one per mesh dim,
+    ``Shard(d)`` where tensor dim d is split over that mesh axis, else
+    ``Replicate()``.  The axes of one tuple entry must come in the mesh's
+    order (outermost first), the only nesting DTensor's ``Shard`` has."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(pspec):
+        dims = [names.index(a) for a in _as_tuple(entry)]
+        if dims != sorted(dims):
+            raise NotImplementedError(
+                f"placements: {entry!r} on tensor dim {d} nests mesh axes "
+                f"out of the mesh's order {tuple(names)}")
+        for m in dims:
+            out[m] = Shard(d)
+    return out
+
+
+def named_sharding(
+    logical_dims: Sequence[Optional[str]],
+    shape: Sequence[int],
+    mesh,
+    rules: AxisRules,
+) -> NamedSharding:
+    spec = resolve_pspec(logical_dims, shape, mesh, rules)
+    return NamedSharding(mesh, tuple(placements(spec, mesh)))
+
+
+def with_logical_constraint(x: torch.Tensor, *logical_dims: Optional[str]):
+    """Sharding-constrain an intermediate by logical axis names.
+
+    A no-op outside a sharding_context and on a plain tensor (the models
+    run on whole tensors); a DTensor is redistributed to the resolved
+    placements.
+    """
+    from torch.distributed.tensor import DTensor
+    ctx = current_context()
+    if ctx is None or ctx.mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = resolve_pspec(logical_dims, x.shape, ctx.mesh, ctx.rules)
+    return x.redistribute(ctx.mesh, placements(spec, ctx.mesh))
+
+
+def batch_dims(mesh, rules: AxisRules) -> list:
+    """The mesh dims the "batch" rule can shard over: the ranks along them
+    hold different slices of a batch (or, where the batch did not divide,
+    the same one)."""
+    named = {a for alt in rules.alternatives("batch") for a in _as_tuple(alt)}
+    return [m for m, a in enumerate(mesh.mesh_dim_names) if a in named]
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch-axis ranks of `x`, a mean over this rank's
+    slice of the batch: the global batch's mean when the slices are equal
+    (the JAX package takes such a mean over the whole sharded batch).
+    Not differentiable (for a quantity with no gradient).  `x` itself
+    outside a sharding_context over a DeviceMesh, or when the batch axes
+    are 1."""
+    import torch.distributed as dist
+    ctx = current_context()
+    mesh = None if ctx is None else ctx.mesh
+    if mesh is None or not hasattr(mesh, "get_group"):
+        return x
+    dims = [m for m in batch_dims(mesh, ctx.rules) if mesh.size(m) > 1]
+    if not dims:
+        return x
+    x = x.detach().clone()
+    for m in dims:
+        dist.all_reduce(x, group=mesh.get_group(m))
+    return x / math.prod(mesh.size(m) for m in dims)
+
+
+def logical_sharding(logical_dims, shape) -> Optional[NamedSharding]:
+    ctx = current_context()
+    if ctx is None or ctx.mesh is None:
+        return None
+    return named_sharding(logical_dims, shape, ctx.mesh, ctx.rules)
+
+
+# ---------------------------------------------------------------------------
+# a rank's shard, cut locally
+# ---------------------------------------------------------------------------
+
+def local_slice(x, mesh, place: Sequence):
+    """The calling rank's shard of the whole `x` (a tensor or a numpy
+    array, a view where the indexing allows) under `place`: each mesh dim
+    that shards tensor dim d cuts it into equal chunks, in mesh-dim order,
+    and keeps the chunk at the rank's coordinate.  No collective."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("local_slice: the calling rank is not in the mesh")
+    index = [slice(None)] * len(x.shape)
+    lengths = list(x.shape)
+    for m, p in enumerate(place):
+        if not isinstance(p, Shard):
+            continue
+        d, n = p.dim, mesh.size(m)
+        if lengths[d] % n:
+            raise ValueError(f"local_slice: dim {d} of {tuple(x.shape)} "
+                             f"does not split {n} ways")
+        lengths[d] //= n
+        start = (index[d].start or 0) + coord[m] * lengths[d]
+        index[d] = slice(start, start + lengths[d])
+    return x[tuple(index)]
+
+
+def mesh_device(mesh) -> torch.device:
+    """The calling rank's device of `mesh`'s type."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def from_local(local: torch.Tensor, mesh, place: Sequence,
+               shape: Sequence[int]):
+    """The DTensor of global `shape` whose shard on this rank is `local`
+    (no collective, no check)."""
+    from torch.distributed.tensor import DTensor
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(local, mesh, list(place), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def owned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, copied where it is a view into a larger storage (a shard cut
+    out of a whole tensor would keep the whole alive)."""
+    if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+        return t.clone()
+    return t
+
+
+def shard_tensor(x: torch.Tensor, mesh, place: Sequence):
+    """A DTensor of the whole `x` placed by `place`, built from the rank's
+    own slice of `x` (moved to the mesh's device; `x` itself where the
+    slice is all of it and already there): every rank holds the whole
+    `x`, so nothing is sent."""
+    local = local_slice(x, mesh, place).to(mesh_device(mesh))
+    return from_local(owned(local.contiguous()), mesh, place, x.shape)

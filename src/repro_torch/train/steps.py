@@ -11,23 +11,38 @@ place.  Each part of a step runs in a ``torch.profiler.record_function``
 range ("forward", "backward", "optimizer"), which a profiler trace splits
 the step's time by.
 
-``batch_specs`` and ``cache_specs`` are not ported: they exist to build a
-mesh's shardings, which the port does not have yet.
+``make_sharded_train_step`` is the port of the JAX package's
+``jax.jit(step, in_shardings=(state, batch), donate_argnums=(0,))``
+(``launch/dryrun.py``): the state lives as DTensors placed by the
+logical-axis rules (``param_pspecs``; the AdamW moments take the params'
+placements), each data rank takes its slice of the global batch by
+``batch_specs``, and a step gathers the params whole, runs the same
+``loss_and_grads`` on the rank's slice, reduce-scatters the fp32
+gradients back to the params' placements (their mean over the batch
+axes) and runs AdamW on the local shards.  ``batch_specs`` and
+``cache_specs`` give the meta-device shapes and PartitionSpecs of a
+batch and a decode cache at a ``ShapeConfig``.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
-from repro_torch.configs.base import ParallelConfig, TrainConfig
+from repro_torch.configs.base import (ModelConfig, ParallelConfig,
+                                      ShapeConfig, TrainConfig)
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models.common import (cross_entropy_loss, tree_leaves,
                                        tree_map, tree_unflatten)
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.parallel.sharding import (AxisRules, batch_dims,
+                                           local_slice, named_sharding, owned,
+                                           placements, resolve_pspec,
+                                           shard_tensor, sharding_context)
 
 MOE_AUX_COEF = 0.01
 MTP_COEF = 0.3
@@ -83,35 +98,38 @@ def loss_and_grads(model: Model, params, batch, tcfg: TrainConfig):
     return metrics, tree_unflatten(params, grads)
 
 
+def _accumulate(model: Model, params, batch, pcfg: ParallelConfig,
+                tcfg: TrainConfig):
+    """(metrics, grads) of `batch` in `pcfg.microbatches` parts: each
+    part's gradients summed in fp32 buffers (as the JAX package's scan
+    carries them: a bf16 leaf's grads are not summed in bf16), then the
+    sums and the metrics divided by the count."""
+    n = pcfg.microbatches
+    if n == 1:
+        return loss_and_grads(model, params, batch, tcfg)
+    g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in tree_leaves(params)]
+    m_acc = None
+    for i in range(n):
+        mb = {k: t.reshape((n, t.shape[0] // n) + t.shape[1:])[i]
+              for k, t in batch.items()}
+        metrics, grads = loss_and_grads(model, params, mb, tcfg)
+        for a, g in zip(g_acc, tree_leaves(grads)):
+            a.add_(g.float())
+        del grads
+        m_acc = metrics if m_acc is None else {
+            k: m_acc[k] + metrics[k] for k in m_acc}
+    return ({k: v / n for k, v in m_acc.items()},
+            tree_unflatten(params, [a / n for a in g_acc]))
+
+
 # ---------------------------------------------------------------------------
 # train step
 # ---------------------------------------------------------------------------
 
 def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
     def train_step(state: TrainState, batch):
-        if pcfg.microbatches > 1:
-            n = pcfg.microbatches
-            # fp32 sums, as the JAX package's scan carries them: a bf16
-            # leaf's grads are not summed in bf16
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
-                     for p in tree_leaves(state.params)]
-            m_acc = None
-            for i in range(n):
-                mb = {k: t.reshape((n, t.shape[0] // n) + t.shape[1:])[i]
-                      for k, t in batch.items()}
-                metrics, grads = loss_and_grads(model, state.params, mb,
-                                                tcfg)
-                for a, g in zip(g_acc, tree_leaves(grads)):
-                    a.add_(g.float())
-                del grads
-                m_acc = metrics if m_acc is None else {
-                    k: m_acc[k] + metrics[k] for k in m_acc}
-            grads = tree_unflatten(state.params, [a / n for a in g_acc])
-            metrics = {k: v / n for k, v in m_acc.items()}
-        else:
-            metrics, grads = loss_and_grads(model, state.params, batch, tcfg)
-
+        metrics, grads = _accumulate(model, state.params, batch, pcfg, tcfg)
         with record_function("optimizer"):
             lr = warmup_cosine(state.opt_state.count, tcfg)
             new_params, new_opt, gnorm = adamw_update(
@@ -122,6 +140,154 @@ def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
         return TrainState(new_params, new_opt), metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step
+# ---------------------------------------------------------------------------
+
+def train_state_shardings(model: Model, mesh,
+                          rules: Optional[AxisRules] = None) -> TrainState:
+    """A TrainState-shaped tree of NamedSharding: each param's, from the
+    rules, and the same for its AdamW moments; None for the step count
+    (a plain tensor on every rank)."""
+    rules = rules or AxisRules()
+    sh = tree_map(lambda s: named_sharding(s.logical, s.shape, mesh, rules),
+                  model.specs)
+    return TrainState(sh, OptState(sh, sh, None))
+
+
+def shard_train_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """A whole TrainState (every rank holding the same one) as DTensors
+    on `shardings`; each rank keeps its own slice, so nothing is sent."""
+    return tree_unflatten(state, [
+        x if sh is None else shard_tensor(x, sh.mesh, sh.placements)
+        for x, sh in zip(tree_leaves(state), tree_leaves(shardings))])
+
+
+def gather_state(state):
+    """The tree with every DTensor leaf gathered whole (a collective)."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, state)
+
+
+def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
+                            tcfg: TrainConfig, mesh,
+                            rules: Optional[AxisRules] = None):
+    """The train step over `mesh`: `step(state, batch)` takes a state of
+    DTensors (``shard_train_state``) and the *global* batch (the same on
+    every rank), and returns the state (updated in place, as
+    ``make_train_step``'s) and metrics that every rank holds alike.
+
+    Ranks that differ only off the batch axes (the mesh axes of the
+    "batch" rule; off them, the ``model`` coordinate) compute the same
+    slice; the model runs on whole tensors, inside a ``sharding_context``
+    so that its batch-wide means are the global batch's
+    (``sharding.batch_mean``).  The global gradient norm sums each leaf's
+    squares over only the mesh dims that shard it, so a replicated leaf
+    counts once.  At one rank the step computes what ``make_train_step``
+    computes, bit for bit.
+    """
+    import torch.distributed as dist
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rules = rules or AxisRules()
+    if pcfg.opt_state_dtype == "int8":
+        raise ValueError("make_sharded_train_step: int8 AdamW state is "
+                         "blockwise over the flattened leaf; a shard's "
+                         "blocks are not the leaf's (use float32 or "
+                         "bfloat16)")
+    bdims = batch_dims(mesh, rules)
+    n_batch = math.prod(mesh.size(m) for m in bdims)
+    grad_place = [Partial() if m in bdims else Replicate()
+                  for m in range(mesh.ndim)]
+    groups = {m: mesh.get_group(m) for m in range(mesh.ndim)
+              if mesh.size(m) > 1}
+    cfg = model.cfg
+
+    def local_batch(batch):
+        """The rank's slice of each of the global batch's microbatches,
+        laid end to end (so that `_accumulate`'s i-th part is the rank's
+        slice of the global i-th microbatch, as under the JAX package's
+        sharded scan)."""
+        n = pcfg.microbatches
+        b, s = batch["tokens"].shape
+        shape = ShapeConfig("train", s + cfg.vision_tokens, b // n, "train")
+        _, ps = batch_specs(cfg, shape, mesh, rules)
+        out = {}
+        for k, t in batch.items():
+            place = placements(ps[k], mesh)
+            parts = [local_slice(mb, mesh, place)
+                     for mb in t.reshape((n, b // n) + t.shape[1:])]
+            out[k] = parts[0] if n == 1 else torch.cat(parts)
+        return out
+
+    def train_step(state: TrainState, batch):
+        with torch.no_grad(), record_function("gather"):
+            params = gather_state(state.params)
+        # backward on this thread (not autograd's device thread): the
+        # checkpointed layers' recomputation then sees the context too
+        with sharding_context(mesh, rules), \
+                torch.autograd.set_multithreading_enabled(False):
+            metrics, grads = _accumulate(model, params, local_batch(batch),
+                                         pcfg, tcfg)
+        del params
+        shards = tree_leaves(state.params)
+        grads = tree_leaves(grads)
+        with torch.no_grad(), record_function("reduce"):
+            local = []
+            for i, p in enumerate(shards):
+                g = grads[i].float()
+                grads[i] = None            # one full fp32 leaf at a time
+                if n_batch > 1:
+                    g = g / n_batch
+                local.append(from_partial(g, mesh, grad_place, p.placements))
+                del g
+            keys = sorted(metrics)
+            mvec = torch.stack([metrics[k] for k in keys])
+            for m in bdims:
+                if m in groups:
+                    dist.all_reduce(mvec, group=groups[m])
+            if n_batch > 1:
+                mvec = mvec / n_batch
+            metrics = dict(zip(keys, mvec.unbind()))
+            gnorm = None
+            if tcfg.grad_clip:
+                sq = torch.stack([g.square().sum() for g in local])
+                for m, group in groups.items():
+                    mask = torch.tensor(
+                        [isinstance(p.placements[m], Shard) for p in shards],
+                        device=sq.device)
+                    if bool(mask.any()):
+                        part = torch.where(mask, sq, 0.0)
+                        dist.all_reduce(part, group=group)
+                        sq = torch.where(mask, part, sq)
+                gnorm = torch.sqrt(sum(sq.unbind()))
+        with record_function("optimizer"):
+            lr = warmup_cosine(state.opt_state.count, tcfg)
+            loc = lambda tree: tree_map(lambda t: t.to_local(), tree)
+            _, new_opt, gnorm = adamw_update(
+                tree_unflatten(state.params, local),
+                OptState(loc(state.opt_state.m), loc(state.opt_state.v),
+                         state.opt_state.count),
+                loc(state.params), lr, tcfg,
+                state_dtype=pcfg.opt_state_dtype, gnorm=gnorm)
+        metrics["grad_norm"] = gnorm
+        metrics["lr"] = lr
+        return TrainState(state.params, OptState(
+            state.opt_state.m, state.opt_state.v, new_opt.count)), metrics
+
+    return train_step
+
+
+def from_partial(g: torch.Tensor, mesh, src: list, dst) -> torch.Tensor:
+    """This rank's shard, under placements `dst`, of the sum over the
+    ``Partial`` mesh dims of `src` of every rank's whole `g` (a reduce-
+    scatter where `dst` shards a summed dim, an all-reduce where it
+    replicates it; a local slice on the replicated dims)."""
+    from torch.distributed.tensor import DTensor
+    return owned(DTensor.from_local(g, mesh, src, run_check=False)
+                 .redistribute(mesh, list(dst)).to_local())
 
 
 def init_train_state(model: Model, generator: torch.Generator,
@@ -147,3 +313,72 @@ def make_decode_step(model: Model):
     def decode_step(params, cache, tokens, positions):
         return model.decode(params, cache, tokens, positions)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs (meta tensors) + logical axes, per (arch x shape)
+# ---------------------------------------------------------------------------
+
+def batch_logical(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Tuple]:
+    """name -> ((shape), (logical axes), dtype) for the input batch."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {
+            "tokens": ((b, 1), ("batch", None), torch.int32),
+            "positions": ((b,), ("batch",), torch.int32),
+        }
+    st = s - cfg.vision_tokens
+    out = {"tokens": ((b, st), ("batch", "seq"), torch.int32)}
+    if shape.kind == "train":
+        out["labels"] = ((b, st), ("batch", "seq"), torch.int32)
+    if cfg.vision_tokens:
+        out["patch_embeds"] = ((b, cfg.vision_tokens, cfg.vision_embed_dim),
+                               ("batch", None, None), torch.bfloat16)
+    if cfg.encoder_layers:
+        out["frames"] = ((b, cfg.encoder_seq_len, cfg.d_model),
+                         ("batch", None, "act_embed"), torch.bfloat16)
+    return out
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh, rules: AxisRules):
+    """(meta-tensor tree, PartitionSpec tree) for the batch."""
+    logical = batch_logical(cfg, shape)
+    meta = {k: torch.empty(sh, dtype=dt, device="meta")
+            for k, (sh, lg, dt) in logical.items()}
+    pspecs = {k: resolve_pspec(lg, sh, mesh, rules)
+              for k, (sh, lg, dt) in logical.items()}
+    return meta, pspecs
+
+
+def _cache_leaf_dtype(path) -> torch.dtype:
+    """Cache dtype by leaf name: pos -> int32, ssm state -> fp32, else bf16."""
+    if path and path[-1] == "pos":
+        return torch.int32
+    if path and path[-1] == "ssm":
+        return torch.float32
+    return torch.bfloat16
+
+
+def cache_specs(model: Model, shape: ShapeConfig, mesh, rules: AxisRules):
+    """(meta-tensor tree, PartitionSpec tree) for the decode cache at this
+    shape.  A leaf of ``model.cache_spec`` is a ((shape), (logical axes))
+    pair; its path's last key names its dtype."""
+    def is_leaf(x):
+        return (isinstance(x, tuple) and len(x) == 2
+                and isinstance(x[0], tuple)
+                and all(isinstance(i, int) for i in x[0]))
+
+    def walk(tree, path, fn):
+        if is_leaf(tree):
+            return fn(path, tree)
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,), fn) for k, v in tree.items()}
+        return type(tree)(walk(v, path + (i,), fn)
+                          for i, v in enumerate(tree))
+
+    spec = model.cache_spec(shape.global_batch, shape.seq_len)
+    meta = walk(spec, (), lambda path, leaf: torch.empty(
+        leaf[0], dtype=_cache_leaf_dtype(path), device="meta"))
+    ps = walk(spec, (), lambda path, leaf: resolve_pspec(
+        leaf[1], leaf[0], mesh, rules))
+    return meta, ps

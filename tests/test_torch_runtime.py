@@ -14,8 +14,10 @@ Stragglers, the resilient runner and the elastic device grid, on the CPU:
   * ``ElasticController`` grows and shrinks a session's fleet through the
     autoscaler and re-forms its grid over the live pilots' devices.
 
-``test_elastic_reshard_state_roundtrip`` has no counterpart yet: the port
-has no ``parallel/sharding.py`` to resolve logical specs with.  The
+``test_elastic_reshard_state_roundtrip``'s counterpart runs
+``reshard_state`` over 4 gloo ranks (tests/_torch_dist.py) on the meshes
+``build_mesh`` forms over ranks, (4, 1) and (2, 2): each rank holds its
+slice of the host array, and the gathered state equals it.  The
 ``gpu`` cases (a killed pilot's device memory is freed; a migration
 between two pilots on the card keeps its bytes) skip without a card, and
 import nothing of JAX, so ``pytest --noconftest -m gpu`` runs them where
@@ -299,6 +301,24 @@ def test_build_mesh_lays_devices_on_the_plan_axes():
     assert grid.devices[1, 0] == torch.device("cuda", 3)
     grid = build_mesh(devs[:5], plan_mesh(5, 2))  # prime: (5, 1)
     assert grid.shape == (5, 1) and grid.size == 5
+
+
+def test_elastic_reshard_state_roundtrip(tmp_path):
+    from _torch_dist import spawn
+    spawn("""
+        from repro_torch.models.common import ParamSpec
+        from repro_torch.parallel.sharding import AxisRules
+        from repro_torch.runtime.elastic import (build_mesh, plan_mesh,
+                                                 reshard_state)
+        spec = {"w": ParamSpec((8, 16), ("embed", "mlp"))}
+        host = {"w": np.arange(128, dtype=np.float32).reshape(8, 16)}
+        for mp, local in ((1, (2, 16)), (2, (4, 8))):
+            mesh = build_mesh(list(range(world)), plan_mesh(world, mp))
+            out = reshard_state(host, spec, mesh, AxisRules())
+            assert tuple(out["w"].to_local().shape) == local
+            np.testing.assert_array_equal(out["w"].full_tensor().numpy(),
+                                          host["w"])
+    """, world=4, tmp_path=tmp_path)
 
 
 def test_elastic_controller_tracks_generations():
