@@ -18,7 +18,8 @@ A sharded state (DTensor leaves, ``train.steps.shard_train_state``) is
 saved whole: ``save`` gathers every leaf, a collective that every rank of
 the mesh makes, and only the rank at the mesh's origin (rank 0 of the
 mesh) writes, in the same format; the background writer runs no
-collective.  Another rank returns once the gather is done, so a rank that
+collective.  A rank outside the state's mesh may not save it
+(ValueError).  Another rank returns once the gather is done, so a rank that
 reads the checkpoint back meets the writer at a barrier first.
 ``restore(like, step, shardings=)`` is the elastic re-mesh: each leaf
 with a ``NamedSharding`` goes onto its (mesh, placements), each rank
@@ -108,7 +109,13 @@ class CheckpointManager:
         named = _named(state)
         meshes = [v.device_mesh for v in named.values()
                   if isinstance(v, DTensor)]
-        writer = not meshes or not any(meshes[0].get_coordinate())
+        if any(m.get_coordinate() is None for m in meshes):
+            raise ValueError(
+                "save: this rank holds no shard of the state's mesh (a rank "
+                "that left the mesh saves nothing)")
+        # the writer: the global rank at the mesh's origin
+        writer = not meshes or (torch.distributed.get_rank()
+                                == int(meshes[0].mesh.flatten()[0]))
         host = {}
         for k, v in named.items():         # one whole leaf at a time
             if isinstance(v, DTensor):

@@ -17,12 +17,14 @@ Over a device mesh: when a process group is up, or ``torchrun``'s
 environment names one (``torchrun --nproc-per-node N -m
 repro_torch.launch.train ...``; NCCL on the card, each rank on its
 ``LOCAL_RANK`` card, gloo on the CPU), every rank forms
-``make_local_mesh(--model-parallel)``, submits its own pilot on its
-device, holds its shards of the state (``steps.shard_train_state``),
-steps through ``steps.make_sharded_train_step`` on its slice of the
-pipeline's global batch (every rank reads the same batches), saves
-through the gathering checkpoint and restores through
-``restore(shardings=)``.  Rank 0 prints; every rank returns the run.
+``make_local_mesh()`` (every rank on the data axis), submits its own
+pilot on its device, holds its shards of the state
+(``steps.shard_train_state``), steps through
+``steps.make_sharded_train_step`` on its slice of the pipeline's global
+batch (every rank reads the same batches), saves through the gathering
+checkpoint and restores through ``restore(shardings=)`` the step rank 0
+last wrote whole (``agreed_latest_step``).  Rank 0 prints; every rank
+returns the run.
 
 Presets scale the *width/depth* of the chosen architecture family while
 keeping its structure (GQA ratios, MoE top-k, SSM dims), so every assigned
@@ -141,9 +143,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="inject a pilot failure at this step (demo)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the mesh's model axis, under a process group")
     return ap.parse_args(argv)
+
+
+def agreed_latest_step(ckpt: CheckpointManager, mesh) -> Optional[int]:
+    """The newest step on disk, the same on every rank of a sharded run:
+    rank 0 (the writer) first finishes its background save, then tells
+    the others which step it sees, so no rank reads an older step while
+    rank 0's newest is still a ``.tmp`` directory.  A collective."""
+    if mesh is None:
+        return ckpt.latest_step()
+    if dist.get_rank() == 0:
+        ckpt.wait()
+    latest = [ckpt.latest_step()]
+    dist.broadcast_object_list(latest, src=0)
+    return latest[0]
 
 
 def run(argv=None) -> TrainRun:
@@ -153,8 +167,7 @@ def run(argv=None) -> TrainRun:
         dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(dev)
     owned = init_distributed(dev)
-    mesh = make_local_mesh(args.model_parallel) if dist.is_initialized() \
-        else None
+    mesh = make_local_mesh() if dist.is_initialized() else None
     rank = dist.get_rank() if mesh is not None else 0
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = scaled_config(args.arch, args.preset)
@@ -201,8 +214,9 @@ def run(argv=None) -> TrainRun:
     ckpt = CheckpointManager(Path(args.ckpt_dir) / cfg.name)
 
     start = 0
-    if ckpt.latest_step() is not None:
-        state, start = ckpt.restore(state, shardings=shardings)
+    latest = agreed_latest_step(ckpt, mesh)
+    if latest is not None:
+        state, start = ckpt.restore(state, latest, shardings=shardings)
         say(f"[train] restored step {start}")
 
     if dev.type == "cuda":
@@ -222,7 +236,8 @@ def run(argv=None) -> TrainRun:
                 pilot = svc.submit_pilot(desc)
                 step_fn = pilot.jit_cached(("train_step", cfg.name),
                                            build_step)
-                state, step = ckpt.restore(state, shardings=shardings)
+                state, step = ckpt.restore(
+                    state, agreed_latest_step(ckpt, mesh), shardings=shardings)
                 say(f"[train] recovered at step {step}")
                 continue
             t0 = time.perf_counter()

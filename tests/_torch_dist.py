@@ -1,5 +1,5 @@
-"""Run a snippet in N processes that form one gloo process group, for the
-port's multi-rank tests on the CPU.
+"""Run a snippet in N processes that form one process group, for the
+port's multi-rank tests: gloo on the CPU, or NCCL with one card a rank.
 
 Each rank is a ``python -c`` subprocess (PYTHONPATH=src, one OpenMP
 thread) whose prelude joins the group through a file under the test's
@@ -7,9 +7,9 @@ tmp_path (no TCP port to clash under xdist) with a timeout, and whose
 epilogue meets every peer at a ``barrier()`` before
 ``destroy_process_group()`` (a rank that leaves first breaks its peers'
 connections).  The snippet sees ``rank``, ``world``, ``out`` (a
-directory shared by the ranks), ``np``, ``torch`` and ``dist``.  The whole
-group has one wall-clock timeout; ranks still running then are killed,
-and so are the others when one fails.
+directory shared by the ranks), ``device``, ``np``, ``torch`` and
+``dist``.  The whole group has one wall-clock timeout; ranks still
+running then are killed, and so are the others when one fails.
 """
 import os
 import subprocess
@@ -28,9 +28,14 @@ import torch
 import torch.distributed as dist
 rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
 out = Path(os.environ["DIST_OUT"])
+backend = os.environ["DIST_BACKEND"]
+device = torch.device("cuda", rank) if backend == "nccl" else None
+if device is not None:
+    torch.cuda.set_device(device)
 dist.init_process_group(
-    "gloo", init_method="file://" + os.environ["DIST_INIT"], rank=rank,
-    world_size=world, timeout=datetime.timedelta(seconds=60))
+    backend, init_method="file://" + os.environ["DIST_INIT"], rank=rank,
+    world_size=world, timeout=datetime.timedelta(seconds=60),
+    device_id=device)
 """
 
 EPILOGUE = """
@@ -40,11 +45,13 @@ print("rank-ok", rank)
 """
 
 
-def spawn(code: str, world: int, tmp_path, timeout: float = 120.0) -> Path:
+def spawn(code: str, world: int, tmp_path, timeout: float = 120.0,
+          backend: str = "gloo") -> Path:
     """Run `code` on `world` ranks; assert each exits 0 within `timeout`
     seconds in all (a rank that fails stops its peers at once: they
-    would wait on it in a collective).  Returns the shared ``out``
-    directory."""
+    would wait on it in a collective).  Under ``backend="nccl"`` rank r
+    runs on card r (``device`` in the snippet; None under gloo).
+    Returns the shared ``out`` directory."""
     tmp = Path(tmp_path)
     out = tmp / "dist_out"
     out.mkdir(parents=True, exist_ok=True)
@@ -54,7 +61,8 @@ def spawn(code: str, world: int, tmp_path, timeout: float = 120.0) -> Path:
     script = PRELUDE + textwrap.dedent(code) + EPILOGUE
     env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1",
            "WORLD_SIZE": str(world), "DIST_OUT": str(out),
-           "DIST_INIT": str(init), "PYTHONWARNINGS": "ignore"}
+           "DIST_INIT": str(init), "DIST_BACKEND": backend,
+           "PYTHONWARNINGS": "ignore"}
     logs = [(tmp / f"rank{r}.out", tmp / f"rank{r}.err")
             for r in range(world)]
     procs = []

@@ -24,15 +24,20 @@ one device or, where it needs a mesh, in a subprocess on 4 host devices.
   their step-4 state equals the uninterrupted (2, 2) run's within rtol
   1e-5, atol 1e-7 (the data axis went from 2 ranks to 1: the gradient
   means are summed in another order);
-- the training CLI over 4 ranks (``launch.train.main`` with the group
-  up, a (2, 2) mesh from ``--model-parallel 2``): every rank ends with
-  the same finite loss, rank 0 writes the checkpoints, and a second run
-  restores the last one through ``restore(shardings=)`` and goes on;
-- one ``gpu`` test: a one-rank NCCL mesh on the card trains 3 steps of
+  (and a leaver may not save a tensor of the survivors' mesh);
+- the training CLI over 4 ranks (``launch.train.run`` with the group
+  up, a (4, 1) mesh): every rank ends with the same finite loss, rank 0
+  writes the checkpoints, and a second run restores the last one
+  through ``restore(shardings=)`` and goes on; a pilot lost at step 4,
+  while rank 0 may still be writing step 4's checkpoint, restores step
+  4 on every rank, and the ranks' losses stay equal;
+- ``gpu`` tests (they import nothing of JAX: ``pytest --noconftest -m
+  gpu``): a one-rank NCCL mesh on the card trains 3 steps of
   ``reduced(llama3_2_1b)`` (fp32, and bf16 with 2 microbatches) bit for
   bit as the unsharded step does, and its checkpoint restores through
-  ``restore(shardings=)`` bit for bit (it imports nothing of JAX:
-  ``pytest --noconftest -m gpu``).
+  ``restore(shardings=)`` bit for bit; on four cards, NCCL over (4, 1)
+  and (2, 2) meshes trains 3 fp32 steps as the unsharded step on each
+  card does, at the tolerances of the CPU cases above.
 """
 import json
 import pickle
@@ -270,6 +275,16 @@ def sharded_steps(tmp_path_factory):
             dump("survivors", restored)
         else:
             assert small.get_coordinate() is None
+            # a leaver holding a tensor of the new mesh may not save it
+            from torch.distributed.tensor import DTensor, Replicate
+            gone = DTensor.from_local(torch.zeros(0), small,
+                                      [Replicate(), Replicate()],
+                                      run_check=False)
+            try:
+                CheckpointManager(out / "leaver").save(5, {{"x": gone}})
+                raise AssertionError("a leaver saved")
+            except ValueError:
+                pass
     """, world=4, tmp_path=tmp)
     return want, tmp / "dist_out"
 
@@ -312,10 +327,10 @@ def test_train_cli_over_four_ranks(tmp_path):
         from repro_torch.launch.train import run
         argv = ["--preset", "smoke", "--device", "cpu", "--batch", "8",
                 "--seq", "32", "--ckpt-every", "3", "--log-every", "100",
-                "--model-parallel", "2", "--ckpt-dir", str(out / "ck")]
+                "--ckpt-dir", str(out / "ck")]
         first = run(argv + ["--steps", "4"])
         assert dict(zip(first.mesh.mesh_dim_names, first.mesh.shape)) == {
-            "data": 2, "model": 2}
+            "data": 4, "model": 1}
         second = run(argv + ["--steps", "6"])
         assert len(second.losses) == 2   # restored at step 4
         ckpt = CheckpointManager(out / "ck" / first.cfg.name)
@@ -328,6 +343,24 @@ def test_train_cli_over_four_ranks(tmp_path):
     """, world=4, tmp_path=tmp_path)
     steps = sorted(p.name for p in (out / "ck").glob("*/step_*"))
     assert steps == ["step_00000003", "step_00000004", "step_00000006"]
+
+
+def test_train_cli_over_four_ranks_recovers_from_one_step(tmp_path):
+    spawn("""
+        from repro_torch.launch.train import run
+        # rank 0 writes the saves at steps 2 and 4 in the background; the
+        # pilot fails at step 4, while the step-4 save may still be a .tmp
+        # directory, and every rank must restore step 4
+        r = run(["--preset", "smoke", "--device", "cpu", "--batch", "8",
+                 "--seq", "32", "--ckpt-every", "2", "--log-every", "100",
+                 "--steps", "6", "--failure-at", "4",
+                 "--ckpt-dir", str(out / "ck")])
+        everyone = [None] * world
+        dist.all_gather_object(everyone, r.losses)
+        assert all(x == r.losses for x in everyone), everyone
+        assert len(r.losses) == 6, r.losses        # steps 1-4, then 5-6
+        assert all(np.isfinite(r.losses))
+    """, world=4, tmp_path=tmp_path)
 
 
 # -- the card ------------------------------------------------------------------
@@ -388,3 +421,62 @@ def test_one_rank_mesh_on_the_card_trains_as_one_device(dtype, mb, tmp_path):
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_four_cards_train_as_one_card(tmp_path):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    spawn(f"""
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import (ParallelConfig, TrainConfig,
+                                              reduced)
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.common import (tree_leaves, tree_map,
+                                               tree_unflatten)
+        from repro_torch.models.model import build_model
+        from repro_torch.train import steps
+        model = build_model(reduced(get_config("llama3_2_1b"),
+                                    dtype="float32"))
+        drawn = model.init(torch.Generator(device=device).manual_seed(0),
+                           device=device)
+        # in fp32 (the specs draw some leaves in bf16), the stacked leaves
+        # at 1/sqrt(fan-in), as tests/test_torch_train.py takes them: on
+        # the reference's init fp32 gradients move with the order of sums
+        init = tree_unflatten(drawn, [
+            t.float() * float(np.sqrt(s.shape[0] / s.shape[1]))
+            if s.init == "scaled" and s.logical[0] == "layers"
+            else t.float()
+            for s, t in zip(tree_leaves(model.specs), tree_leaves(drawn))])
+        rng = np.random.default_rng(10)
+        batches = [{{k: torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, (8, 32))).to(device)
+            for k in ("tokens", "labels")}} for _ in range(3)]
+        tcfg = TrainConfig(**{STEP_CFG!r})
+        for shape in ((4, 1), (2, 2)):
+            mesh = make_mesh(shape, ("data", "model"))
+            runs = []
+            for sharded in (False, True):
+                params = tree_map(lambda t: t.clone(), init)
+                state = steps.TrainState(params, steps.adamw_init(params))
+                if sharded:
+                    state = steps.shard_train_state(
+                        state, steps.train_state_shardings(model, mesh))
+                    step = steps.make_sharded_train_step(
+                        model, ParallelConfig(), tcfg, mesh)
+                else:
+                    step = steps.make_train_step(model, ParallelConfig(),
+                                                 tcfg)
+                metrics = []
+                for batch in batches:
+                    state, m = step(state, batch)
+                    metrics.append({{k: float(v) for k, v in m.items()}})
+                runs.append((metrics, tree_leaves(
+                    steps.gather_state(state.params))))
+            for got, want in zip(runs[1][0], runs[0][0]):
+                for k in want:
+                    np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                               atol=1e-8, err_msg=k)
+            for a, b in zip(runs[1][1], runs[0][1]):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+    """, world=4, tmp_path=tmp_path, backend="nccl")
