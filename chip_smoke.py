@@ -73,6 +73,12 @@ kernels' launch counts set to 0 just before and read just after:
   a step's gradients over a pod axis of 1 (relative error under 0.02,
   nonzero residual); no kernel, each count asserted 0; the group is
   destroyed before the next phase.
+- the dry-run (after sharded training): ``launch.dryrun`` plans the
+  sharded training cell on fake tensors over a fake one-rank group in a
+  CPU subprocess; its roofline time must not exceed the measured median
+  step and its planned peak must lie within 25% of the measured peak;
+  ``roofline.analysis.HBM_PER_CHIP`` must equal the card's total memory.
+  No kernel.
 - resilient training: the 100m preset's train step through
   ``runtime.fault_tolerance.ResilientRunner``, 12 steps on a simulated
   pilot lost after 7 (one recovery from the step-4 checkpoint), held to
@@ -95,6 +101,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -107,9 +114,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense): fp32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+# the H100's peaks and the kernels' bounds, shared with the dry-run
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_PER_CHIP, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PEAK_EXP_PER_S,
+    attention_bound, flash_bound, kmeans_bound, scan_bound, train_flops)
+
 L2_BYTES = 50 * 2 ** 20
 SOURCE = "src/repro_torch/kernels/kmeans/csrc/kmeans.cu"
 REPLACES = "src/repro/kernels/kmeans/kmeans.py:47"
@@ -124,9 +133,6 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:82"
 SCAN_SOURCE = ("src/repro_torch/kernels/selective_scan/csrc/"
                "selective_scan.cu")
 SCAN_REPLACES = "src/repro/kernels/selective_scan/selective_scan.py:55"
-PEAK_BF16_FLOPS = 989e12          # dense tensor-core bf16
-# the SFUs' exp rate: 16 per clock per SM, 132 SMs at the 1.98 GHz boost
-PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 PARTS, ITERS, D = 8, 5, 8
 # the serving phase: Llama-3.2-1B, batch 8, 1024-slot cache, 16 requests
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_GEN = 8, 1024, 16, 64
@@ -167,17 +173,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(n: int, k: int, d: int, esize: int):
-    """Least time for the function on an H100 SXM (s) and what bounds it:
-    2NKD fp32 FLOP for the distances, and the inputs read once plus the
-    outputs written once."""
-    flops = 2.0 * n * k * d
-    nbytes = (n * d + k * d) * esize + (k * d + k + 1) * 4
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def event_ms(torch, fn, reps: int) -> float:
     """Mean time per call on the card (CUDA events around `reps` eager
     calls, after a warm-up)."""
@@ -215,22 +210,45 @@ def graph_ms(torch, fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_trace(torch, fn):
+def device_trace(torch, fn, retries: int = 0):
     """Run fn() under torch.profiler (CUDA activity only).  Returns fn's
     result, the host wall seconds, and the device microseconds summed per
-    kernel (or copy) name."""
+    kernel (or copy) name.  A trace that holds no device event is taken
+    again up to `retries` times: only for an fn that may run twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for attempt in range(retries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        per = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                per[e.name] = per.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us()
+        if per:
+            break
+        if attempt < retries:
+            log(f"device trace held no device event; tracing again "
+                f"({attempt + 1} of {retries})")
     return out, wall, per
+
+
+def profiler_ready(torch, tries: int = 5) -> int:
+    """Trace a few small kernels until the profiler delivers device
+    events, before any trace is read: a process's first profiler session
+    may come back with none while CUPTI starts.  Returns the sessions it
+    took; raises if none of `tries` held a device event."""
+    x = torch.ones(1 << 20, device="cuda")
+    for attempt in range(1, tries + 1):
+        _, _, per = device_trace(torch, lambda: [x.mul_(1.0)
+                                                 for _ in range(8)])
+        if per:
+            return attempt
+    raise RuntimeError(f"the profiler recorded no device event in "
+                       f"{tries} sessions")
 
 
 # the kernels kmeans.cu launches per call (profiler names, "<stage>_kernel")
@@ -288,10 +306,10 @@ def check_kernel(torch, make_blobs, kernel_mod, op, n, k, d, dtype,
     eager = event_ms(torch, lambda: op(x, c, impl="cuda"), reps=20)
     plain = event_ms(torch, lambda: op(x, c, impl="ref"), reps=5)
     _, _, per = device_trace(torch, lambda: [op(x, c, impl="cuda")
-                                             for _ in range(5)])
+                                             for _ in range(5)], retries=2)
     stages = kernel_stages(per, 5)
     assert set(stages) == set(KMEANS_STAGES), per
-    b_s, b_by = bound(n, k, d, x.element_size())
+    b_s, b_by = kmeans_bound(n, k, d, x.element_size())
     row = {"n": n, "k": k, "d": d, "dtype": str(dtype).split(".")[-1],
            "kernel_ms": ms, "kernel_eager_ms": eager, "plain_ms": plain,
            "bound_us": b_s * 1e6, "bound_by": b_by,
@@ -341,22 +359,6 @@ def valid_slots(torch, cpos, pos, window: int) -> int:
     if window:
         valid &= rel < window
     return int(valid.sum())
-
-
-def attention_bound(b: int, sc: int, nq: int, nkv: int, h: int, esize: int,
-                    valid: int):
-    """Least time for decode attention on an H100 SXM (s) and what bounds
-    it: the K and V rows of the `valid` slots read once (no kernel needs
-    an empty slot's row), cache_pos and positions read once, q read and
-    the output written once; 4*H fp32 FLOP per valid slot and query head
-    (the two products).  With valid = b*sc it counts every row, empty
-    slots too (the bound_all_rows_us of the log line)."""
-    nbytes = (2 * valid * nkv * h * esize + 2 * b * nq * h * esize
-              + 4 * b * sc + 4 * b)
-    flops = 4.0 * valid * (nq // nkv) * h
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
 
 
 def rotating(sets, fn):
@@ -760,24 +762,6 @@ def hymba_inputs(torch, cfg, b: int, s: int, seed: int):
         0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
 
 
-def flash_bound(b, sq, skv, nq, nkv, h, esize, causal, window):
-    """Least time for flash attention on an H100 SXM (s), what bounds it and
-    the valid (q, kv) pairs: 4*H FLOP per valid pair and query head against
-    the tensor-core peak of the input type (bf16; fp32 runs outside the
-    tensor cores, at the fp32 peak), and q, k, v read and the output
-    written once."""
-    i = np.arange(sq)
-    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
-    hi = np.minimum(i, skv - 1) if causal else np.full_like(i, skv - 1)
-    pairs = int(np.maximum(0, hi - lo + 1).sum())
-    flops = 4.0 * b * nq * h * pairs
-    peak = PEAK_BF16_FLOPS if esize == 2 else PEAK_FP32_FLOPS
-    nbytes = (2 * b * sq * nq * h + 2 * b * skv * nkv * h) * esize
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes"), pairs
-
-
 def sdpa_prefill(torch, q, k, v, causal, window):
     """The library call: scaled_dot_product_attention with the boolean
     causal/window mask and enable_gqa, in the (B,S,N,H) layout."""
@@ -863,19 +847,6 @@ def check_flash(torch, op, name, b, s, nq, nkv, h, dtype, window,
         f"sdpa_ms={library:.6f} bound_us={b_s * 1e6:.4f} ({b_by}) "
         f"max_abs_err={row['max_abs_err']:.3e} sdpa_err={lib_err:.3e}")
     return row
-
-
-def scan_bound(b, s, di, n, esize):
-    """Least time for the selective scan on an H100 SXM (s) and what
-    bounds it: x, B, C read and y written in the input type, dt read and
-    h_end written in fp32, once each; 7 fp32 operations per (b, t, d, n)
-    (the exp counted as one) at the fp32 peak."""
-    nbytes = (2 * b * s * di + 2 * b * s * n) * esize + (b * s * di
-                                                         + b * di * n) * 4
-    flops = 7.0 * b * s * di * n
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
 
 
 def check_scan(torch, op, name, b, s, di, n, dtype, h0=False) -> dict:
@@ -1703,18 +1674,6 @@ def train_bf16_vs_fp32(torch, cfg, init: str) -> dict:
     return row
 
 
-def train_flops(cfg, tokens: int, seq: int) -> float:
-    """Model FLOPs of one train step: 6 N per token (forward 2N, backward
-    4N; N all parameters, the tied head counted once) plus causal
-    attention, 6 * layers * heads * head_dim * S per token (QK^T and P.V,
-    2 * 2 * S * heads * head_dim per token forward over the S/2 keys a
-    causal row sees on average, times 3 for the backward)."""
-    n = cfg.num_params()
-    attn = (6 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim
-            * seq)
-    return (6 * n + attn) * tokens
-
-
 def train_trace(torch, run) -> dict:
     """One more step of the trained state under the profiler (CPU and
     CUDA activity): the device time of the kernels launched in each of
@@ -2093,6 +2052,74 @@ def sharded_training_phase(torch, kernels: dict, unsharded: dict) -> dict:
         shutil.rmtree(ckpt_root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+    return row
+
+
+# -- the dry-run phase ---------------------------------------------------------
+# the sharded training cell above (Llama-3.2-1B at its published config,
+# 8 x 1024, bf16, fp32 AdamW, remat full, mesh (1, 1)) planned by
+# launch.dryrun on fake tensors over a fake one-rank group, in a process of
+# its own (a fake default group never shares a process with a real one)
+PLAN_PEAK_RTOL = 0.25
+PLAN_DIR = ROOT / "build" / "dryrun_card"
+PLAN_ARGV = ["-m", "repro_torch.launch.dryrun", "--arch", "llama3_2_1b",
+             "--shape", "train_4k", "--batch", "8", "--seq", "1024",
+             "--mesh", "1x1", "--force", "--out", str(PLAN_DIR)]
+PLAN_RECORD = PLAN_DIR / "llama3_2_1b__train_4k_b8_s1024__1x1.json"
+
+
+def dryrun_phase(torch, card: str, sharded: dict, unsharded: dict) -> dict:
+    """Plans the sharded training cell on the CPU (``launch.dryrun``, a
+    subprocess that sees no card) and holds the plan to this run's
+    measurement of the same cell: the roofline time (a lower bound) at
+    most the measured median step, the planned peak within
+    PLAN_PEAK_RTOL of ``max_memory_allocated``.  Also checks that
+    ``HBM_PER_CHIP`` is the card's total memory."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"dry-run: HBM_PER_CHIP {HBM_PER_CHIP} bytes, the card's "
+        f"total_memory {total} bytes ({card})")
+    assert total == HBM_PER_CHIP, (total, HBM_PER_CHIP)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable] + PLAN_ARGV, cwd=ROOT, capture_output=True,
+        text=True, timeout=600, env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                                     "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-3000:])
+    rec = json.loads(PLAN_RECORD.read_text())
+    assert rec["status"] == "ok", rec
+    r = rec["roofline"]
+    step_ms, peak = sharded["median_step_ms"], sharded["peak_bytes"]
+    roof_ms = r["roofline_time"] * 1e3
+    row = {"t_compute_ms": r["t_compute"] * 1e3,
+           "t_memory_ms": r["t_memory"] * 1e3,
+           "t_collective_ms": r["t_collective"] * 1e3,
+           "bottleneck": r["bottleneck"], "roofline_ms": roof_ms,
+           "flops": r["flops_per_device"], "bytes": r["bytes_per_device"],
+           "measured_step_ms": step_ms,
+           "unsharded_step_ms": unsharded["median_step_ms"],
+           "step_over_roofline": step_ms / roof_ms,
+           "planned_peak_bytes": r["peak_mem_bytes"],
+           "measured_peak_bytes": peak,
+           "peak_ratio": r["peak_mem_bytes"] / peak,
+           "top_opcode_bytes": r["extras"]["top_opcode_bytes"],
+           "plan_s": rec["plan_s"], "subprocess_s": wall,
+           "total_memory": total}
+    log(f"dry-run plan of llama3.2-1b training (published config, 8 x "
+        f"1024, mesh (1, 1)): t_compute {row['t_compute_ms']:.3f} ms, "
+        f"t_memory {row['t_memory_ms']:.3f} ms, t_collective "
+        f"{row['t_collective_ms']:.3f} ms, bottleneck {r['bottleneck']}, "
+        f"roofline {roof_ms:.3f} ms against the measured median step "
+        f"{step_ms:.3f} ms (sharded; {unsharded['median_step_ms']:.3f} "
+        f"unsharded), step/roofline {row['step_over_roofline']:.4f}; "
+        f"planned in {rec['plan_s']:.3f} s ({wall:.3f} s with the "
+        f"process); {card}")
+    log(f"dry-run plan: peak {r['peak_mem_bytes'] / 1e9:.3f} GB against "
+        f"max_memory_allocated {peak / 1e9:.3f} GB, planned/measured "
+        f"{row['peak_ratio']:.4f} (bound 1 +- {PLAN_PEAK_RTOL}); {card}")
+    assert roof_ms <= step_ms, ("the roofline exceeds the measured step",
+                                row)
+    assert abs(row["peak_ratio"] - 1) <= PLAN_PEAK_RTOL, row
     return row
 
 
@@ -2677,6 +2704,8 @@ def main() -> int:
         f"{ATTN_SOURCE}, flash_attention from {FLASH_SOURCE} (bf16) and "
         f"{FLASH_FP32_SOURCE} (fp32), selective_scan from {SCAN_SOURCE} in "
         f"{time.perf_counter() - t0:.3f} s")
+    log(f"profiler delivers device events after "
+        f"{profiler_ready(torch)} warm-up session(s)")
 
     # -- 2. kernel vs its plain version on the card --------------------------
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2866,6 +2895,9 @@ def main() -> int:
     training["sharded"] = sharded_training_phase(torch, all_kernels,
                                                  training["full"])
     sharded_launches = training["sharded"]["launches"]
+    # -- 6b''. the same cell planned by the dry-run, against its measure ----
+    training["dryrun"] = dryrun_phase(torch, card, training["sharded"],
+                                      training["full"])
     # -- 6c. the train step through the resilient runner -------------------
     resilient = resilient_training_phase(torch, all_kernels)
     gc.collect()

@@ -20,3 +20,11 @@ def refuse_autograd(op: str, *tensors) -> None:
             f"so a gradient would be lost on the card; call it under "
             f"torch.no_grad() or torch.inference_mode(), or train through "
             f"the model's training route (train=True)")
+
+
+def is_abstract(t: torch.Tensor) -> bool:
+    """A tensor with a shape and no data: fake (``FakeTensorMode``) or on
+    the meta device.  The dispatchers plan a call on one (an empty output
+    of the kernel's shape, its cost charged to ``roofline.op_cost``)."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.device.type == "meta" or is_fake(t)

@@ -3,9 +3,12 @@
 ``impl="auto"`` dispatches on the tensor's device: a CUDA tensor launches
 the hand-written kernel (selective_scan.py), a CPU tensor runs the plain
 PyTorch version (ref.py).  ``impl="cuda"`` on a CPU tensor raises.  There
-is no fallback from a failed build or launch to the plain version.  The
-op is forward-only: it raises on an argument that requires grad while
-grad mode is on (``kernels.refuse_autograd``).
+is no fallback from a failed build or launch to the plain version.  A fake
+or meta tensor (a plan: ``launch.dryrun``) gets empty outputs of the
+kernel's shapes, and the kernel's FLOPs and bytes are charged to the active
+``roofline.op_cost.OpCost`` as one op.  The op is forward-only: it raises
+on an argument that requires grad while grad mode is on
+(``kernels.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -13,11 +16,23 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import is_abstract, refuse_autograd
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.selective_scan.selective_scan import selective_scan
+from repro_torch.roofline.analysis import scan_cost
+from repro_torch.roofline.op_cost import record_kernel
 
 IMPLS = ("auto", "cuda", "ref")
+
+
+def _planned(x, b_ssm):
+    """Empty outputs, and the kernel's work charged to the counter."""
+    bsz, s, di = x.shape
+    n = b_ssm.shape[-1]
+    flops, nbytes, _ = scan_cost(bsz, s, di, n, x.element_size())
+    record_kernel("selective_scan", flops, nbytes)
+    return (torch.empty_like(x),
+            x.new_empty((bsz, di, n), dtype=torch.float32))
 
 
 def selective_scan_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -36,10 +51,15 @@ def selective_scan_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"got {impl!r}")
     if impl == "auto":
         kind = x.device.type
-        if kind not in ("cuda", "cpu"):
+        if kind == "cuda":
+            impl = "cuda"
+        elif is_abstract(x):
+            return _planned(x, b_ssm)
+        elif kind == "cpu":
+            impl = "ref"
+        else:
             raise ValueError(f"selective_scan_op: no implementation for "
                              f"device {x.device}")
-        impl = "cuda" if kind == "cuda" else "ref"
     if impl == "ref":
         return selective_scan_ref(x, dt, a, b_ssm, c_ssm, d_skip, h0)
     return selective_scan(x, dt, a, b_ssm, c_ssm, d_skip, h0)

@@ -69,10 +69,13 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
                             mesh_dim_names=tuple(axes))
 
 
+# multi_pod -> (shape, axes) of the production mesh
+PRODUCTION_MESH = {False: ((16, 16), ("data", "model")),
+                   True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(*PRODUCTION_MESH[multi_pod])
 
 
 def make_local_mesh(model_parallel: int = 1):

@@ -255,10 +255,11 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
             if tcfg.grad_clip:
                 sq = torch.stack([g.square().sum() for g in local])
                 for m, group in groups.items():
-                    mask = torch.tensor(
-                        [isinstance(p.placements[m], Shard) for p in shards],
-                        device=sq.device)
-                    if bool(mask.any()):
+                    # decided on the host: a placement is no device value
+                    flags = [isinstance(p.placements[m], Shard)
+                             for p in shards]
+                    if any(flags):
+                        mask = torch.tensor(flags, device=sq.device)
                         part = torch.where(mask, sq, 0.0)
                         dist.all_reduce(part, group=group)
                         sq = torch.where(mask, part, sq)
