@@ -25,6 +25,11 @@ kernels' launch counts set to 0 just before and read just after:
   model runs bf16, decode_attention in each decode step), after a
   model-level check of the kernel decode path against the plain one and
   an fp32 run;
+- serving Llama-3.2-1B over a one-rank (1, 1) NCCL pilot mesh (the
+  multi-device pilot's path: a DeviceMesh over the process group, the
+  engine's rank-0 admission broadcasts, prefill and decode under the
+  mesh's sharding context), token for token the tokens of the serving
+  phase above on the same params;
 - serving Llama-3.2-1B elastically: a burst of 32 requests on one pilot
   of a supervised, autoscaled session (at most 3 pilots on the card); the
   autoscaler scales out on the queue wait, the engine adopts each new
@@ -651,7 +656,7 @@ def read_counts(kernels: dict) -> dict:
 
 
 def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
-          memory_gb: float, after=None):
+          memory_gb: float, after=None, mesh_shape=()):
     """ServingEngine on a one-pilot PilotSession on the card: greedy
     SERVE_GEN tokens for each prompt at batch SERVE_BATCH.  `kernels` maps
     a name to (kernel module, counter): each count is set to 0 just before
@@ -662,7 +667,8 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
     engine's stats, the launches, the wall seconds, the deploy+load
     seconds, the peak device memory from deploy on, and what `after`
     returned; it checks the device types the runtime's params and cache
-    were seen on."""
+    were seen on.  With `mesh_shape`, the pilot's mesh spans the process
+    group's ranks (data x model)."""
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.model import build_model
     from repro_torch.serving import ServingEngine
@@ -679,7 +685,10 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
 
     model = dataclasses.replace(model, decode=probe)
     with core.PilotSession() as s:
-        (pilot,) = s.add_pilots(1, memory_gb=memory_gb)
+        pilot = s.add_pilot(memory_gb=memory_gb,
+                            mesh_axes=("data", "model"),
+                            mesh_shape=mesh_shape)
+        assert (pilot.mesh is not None) == bool(mesh_shape), pilot.mesh
         with ServingEngine(s, model, params=params, batch_size=SERVE_BATCH,
                            max_len=max_len, page_tokens=16) as eng:
             torch.cuda.synchronize()
@@ -688,12 +697,7 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
             eng.deploy()
             # the resident loop rebuilds the params on the card from the
             # pilot's shard replicas first; serve once that is done
-            deadline = time.monotonic() + 300
-            while (eng.name, "runtime") not in pilot._jit_cache:
-                if time.monotonic() > deadline:
-                    raise RuntimeError("the serving runtime was not built "
-                                       "within 300 s")
-                time.sleep(0.01)
+            eng.wait_ready(timeout=300)
             setup = time.perf_counter() - t0
             zero_counts(kernels)
             t0 = time.perf_counter()
@@ -733,17 +737,22 @@ def serve_line(name, cfg, res, width="full width") -> str:
             f"{res['peak_bytes'] / 1e9:.3f} GB")
 
 
-def serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
+def serving_prompts(cfg) -> list:
+    """The Llama serving phases' 16 prompts of 96-160 tokens."""
+    rng = np.random.default_rng(0)
+    lens = itertools.islice(itertools.cycle(PROMPT_LENS), SERVE_REQUESTS)
+    return [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in lens]
+
+
+def serving_phase(torch, core, cfg, params, kernels: dict,
+                  mesh_shape=()) -> dict:
     """The Llama serving path at full width: 16 greedy requests of 96-160
     prompt tokens into a 1024-slot cache.  flash_attention runs once per
     layer in each prefill (a wave or a refill), decode_attention once per
     layer in each decode step."""
-    rng = np.random.default_rng(0)
-    lens = itertools.islice(itertools.cycle(PROMPT_LENS), SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in lens]
-    res = serve(torch, core, cfg, params, prompts, kernels,
-                max_len=SERVE_MAX_LEN, memory_gb=4)
+    res = serve(torch, core, cfg, params, serving_prompts(cfg), kernels,
+                max_len=SERVE_MAX_LEN, memory_gb=4, mesh_shape=mesh_shape)
     st, launches = res["stats"], res["launches"]
     prefills = st["waves"] + st["refills"]
     assert launches["decode_attention"] == (
@@ -753,7 +762,38 @@ def serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
     assert launches["flash_attention"] == cfg.num_layers * prefills, (
         launches, st)
     assert launches["flash_attention_fp32"] == 0, launches   # bf16 model
-    log(serve_line("llama3.2-1b", cfg, res))
+    log(serve_line("llama3.2-1b", cfg, res, "full width" + (
+        f" over a {mesh_shape} pilot mesh" if mesh_shape else "")))
+    return res
+
+
+def pilot_mesh_serving_phase(torch, core, cfg, params, kernels: dict,
+                             unsharded: dict) -> dict:
+    """`serving_phase` again over a one-rank (1, 1) NCCL pilot mesh: a
+    one-rank process group (tcp://127.0.0.1, a free port), a pilot whose
+    description asks for ``mesh_shape=(1, 1)``, so that its DeviceMesh
+    spans the group, and the engine's SPMD loop (rank 0's admissions
+    broadcast every pass, prefill and decode under the mesh's sharding
+    context, greedy tokens by ``vocab_argmax``).  Its tokens must be the
+    unsharded phase's, token for token, on the same params and prompts;
+    its launches follow the same rule."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=600))
+    try:
+        res = serving_phase(torch, core, cfg, params, kernels,
+                            mesh_shape=(1, 1))
+    finally:
+        dist.destroy_process_group()
+    same = sum(a == b for a, b in zip(res["outs"], unsharded["outs"]))
+    log(f"serving over the (1, 1) pilot mesh: {same} of "
+        f"{len(res['outs'])} requests token for token the unsharded "
+        f"phase's")
+    assert res["outs"] == unsharded["outs"], (
+        "the (1, 1) pilot mesh must serve the unsharded tokens")
     return res
 
 
@@ -2810,7 +2850,14 @@ def main() -> int:
         ("internvl2 decode", 8, 1024, 16, 8, 128, bf16, 0, {"fill": 1.0}),
         # Whisper's decoder self-attention: one query head per kv head,
         # bf16, its 448-token text context full
-        ("whisper decode, G=1", 8, 448, 8, 8, 64, bf16, 0, {"fill": 1.0})]
+        ("whisper decode, G=1", 8, 448, 8, 8, 64, bf16, 0, {"fill": 1.0}),
+        # a rank's heads over a (1, 4) pilot mesh: Llama-3.2-1B's 8 of 32
+        # q and 2 of 8 kv heads (G = 4), DeepSeek-67B's 16 of 64 and 2 of
+        # 8 at its 2048-slot cache half full
+        ("llama decode, (1, 4) rank", 8, 1024, 8, 2, 64, bf16, 0,
+         {"fill": 1.0}),
+        ("deepseek-67b decode, (1, 4) rank", 8, 2048, 16, 2, 128, bf16, 0,
+         {"fill": 0.5})]
     attn_rows = [check_attention(torch, decode_attention_op,
                                  decode_attention_ref, name, b, sc, nq, nkv,
                                  h, dt, window=w, **kind)
@@ -2828,7 +2875,11 @@ def main() -> int:
         # head width 128: a Mixtral refill past its 4096 window, and an
         # InternVL2 wave (256 vision + 384 text tokens)
         ("mixtral refill, window", 1, 4608, 48, 8, 128, bf16, 4096),
-        ("internvl2 wave", 8, 640, 16, 8, 128, bf16, 0)]
+        ("internvl2 wave", 8, 640, 16, 8, 128, bf16, 0),
+        # a rank's heads over a (1, 4) pilot mesh (see the decode shapes)
+        ("llama wave, (1, 4) rank", 8, 128, 8, 2, 64, bf16, 0),
+        ("deepseek-67b wave, (1, 4) rank", 8, 512, 16, 2, 128, bf16, 0),
+        ("deepseek-67b refill, (1, 4) rank", 1, 1024, 16, 2, 128, bf16, 0)]
     flash_rows = [check_flash(torch, flash_attention_op, *shape)
                   for shape in flash_shapes]
     # Whisper's non-causal shapes (8/8 heads of 64, 1500 frames): the
@@ -2851,7 +2902,10 @@ def main() -> int:
         ("H=20 rows of 40 bytes", 2, 200, 4, 4, 20, bf16, 0, False))]
     scan_shapes = [("hymba refill", 1, 2048, 3200, 16, bf16),
                    ("hymba wave", 8, 512, 3200, 16, bf16),
-                   ("ragged, h0", 2, 1000, 96, 4, f32, True)]
+                   ("ragged, h0", 2, 1000, 96, 4, f32, True),
+                   # a rank's 800 of Hymba's 3200 channels over (1, 4)
+                   ("hymba refill, (1, 4) rank", 1, 2048, 800, 16, bf16),
+                   ("hymba wave, (1, 4) rank", 8, 512, 800, 16, bf16)]
     scan_rows = [check_scan(torch, selective_scan_op, *shape)
                  for shape in scan_shapes]
 
@@ -2870,6 +2924,11 @@ def main() -> int:
                      "flash_attention": (flash_mod, "TC_LAUNCHES"),
                      "flash_attention_fp32": (flash_mod, "LAUNCHES")}
     lserve = serving_phase(torch, core, cfg, params, llama_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 6'. the same serving over a one-rank (1, 1) pilot mesh -------------
+    pserve = pilot_mesh_serving_phase(torch, core, cfg, params,
+                                      llama_kernels, lserve)
     gc.collect()
     torch.cuda.empty_cache()
     # -- 6a. the elastic fleet: scale-out on the queue wait, a drain -------
@@ -3070,6 +3129,8 @@ def main() -> int:
     by_path = lambda name: {
         path: launches.get(name, 0) for path, launches in (
             ("llama3_2_1b serving", lserve["launches"]),
+            ("llama3_2_1b serving over a (1, 1) pilot mesh",
+             pserve["launches"]),
             ("llama3_2_1b serving, 32 requests on 1 replica",
              eserve["undisturbed_launches"]),
             ("llama3_2_1b elastic serving", eserve["launches"]),
@@ -3120,6 +3181,7 @@ def main() -> int:
         "bound_ms": ahead["bound_us"] / 1e3, "bound_by": ahead["bound_by"],
         "library_ms": ahead["library_ms"], "shapes": attn_rows,
         "model_check": model_row, "serving": served(lserve),
+        "serving_pilot_mesh": served(pserve),
         "model_checks": {"internvl2_2b": vision_row,
                          "mixtral_8x22b": moe_row,
                          "whisper_base": whisper_row,

@@ -2,13 +2,17 @@
 
 Paper §3: "A Pilot-Compute allocates a set of computational resources"; CUs
 are late-bound onto it without further system-level scheduling. Here the
-retained resources are (i) a list of torch devices, and (ii) *warm state*:
+retained resources are (i) a list of torch devices (and, for a pilot whose
+description asks for a ``mesh_shape`` under a process group, a
+``DeviceMesh`` over the group's ranks, current while its CUs run), and
+(ii) *warm state*:
 the executable cache and device-resident weights/data — the paper's
 observation that YARN's per-application JVM+AM startup dominates short jobs
 maps to kernel builds + data staging, and retaining them is the win.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import queue
@@ -125,6 +129,10 @@ class PilotComputeDescription:
     """
     backend: str = "inprocess"       # inprocess | simulated  (adaptor name)
     num_devices: int = 1
+    # the pilot's device mesh: axis names and shape (() = no mesh); see
+    # backends/inprocess.py for the ranks it spans
+    mesh_axes: Tuple[str, ...] = ("data",)
+    mesh_shape: Tuple[int, ...] = ()
     # where the pilot's CUs and device tier run: cuda unless the caller
     # asks for the CPU (resolved at construction; raises without CUDA)
     device: torch.device = None
@@ -144,6 +152,8 @@ class PilotComputeDescription:
     dispatch_queue_depth: int = 1024
 
     def __init__(self, backend: str = "inprocess", num_devices: int = 1,
+                 mesh_axes: Tuple[str, ...] = ("data",),
+                 mesh_shape: Tuple[int, ...] = (),
                  memory: Optional[MemoryDescription] = None,
                  durability: Optional[DurabilityDescription] = None,
                  affinity: str = "", queue_depth: int = 1024,
@@ -174,6 +184,9 @@ class PilotComputeDescription:
         if num_devices < 1:
             raise ValueError("PilotComputeDescription: num_devices must be "
                              f">= 1, got {num_devices}")
+        if any(int(n) < 1 for n in mesh_shape):
+            raise ValueError("PilotComputeDescription: mesh_shape must be "
+                             f"positive, got {tuple(mesh_shape)}")
         if queue_depth < 1:
             raise ValueError("PilotComputeDescription: queue_depth must be "
                              f">= 1, got {queue_depth}")
@@ -187,6 +200,8 @@ class PilotComputeDescription:
             raise ValueError("PilotComputeDescription: dispatch_queue_depth "
                              f"must be >= 1, got {dispatch_queue_depth}")
         for k, v in (("backend", backend), ("num_devices", num_devices),
+                     ("mesh_axes", tuple(mesh_axes)),
+                     ("mesh_shape", tuple(int(n) for n in mesh_shape)),
                      ("device", resolve_device(device)),
                      ("memory", memory),
                      ("durability", durability), ("affinity", affinity),
@@ -273,10 +288,14 @@ class PilotCompute:
     """A running pilot: device slice + worker + warm executable cache."""
 
     def __init__(self, desc: PilotComputeDescription,
-                 devices: Sequence[torch.device], pilot_id: str = ""):
+                 devices: Sequence[torch.device], pilot_id: str = "",
+                 mesh=None):
         self.desc = desc
         self.id = pilot_id or f"pilot-{uuid.uuid4().hex[:8]}"
         self.devices: List[torch.device] = list(devices)
+        # a torch.distributed DeviceMesh over the ranks that run this
+        # pilot with this rank (None: a pilot of this process alone)
+        self.mesh = mesh
         self.state = State.PENDING
         self._queue: "queue.Queue[Optional[ComputeUnit]]" = queue.Queue(
             maxsize=desc.queue_depth)
@@ -380,12 +399,14 @@ class PilotCompute:
                 for du in cu.desc.input_data:
                     if du.tier in ("file", "object"):
                         du.to_tier("host", delete_source=False)
-            if self.devices and self.devices[0].type == "cuda":
-                # the current CUDA device is per thread, and the CU runs
-                # on this pilot's worker thread
-                with torch.cuda.device(self.devices[0]):
-                    result = cu.desc.fn(*cu.desc.args, **cu.desc.kwargs)
-            else:
+            with contextlib.ExitStack() as stack:
+                if self.devices and self.devices[0].type == "cuda":
+                    # the current CUDA device is per thread, and the CU
+                    # runs on this pilot's worker thread
+                    stack.enter_context(torch.cuda.device(self.devices[0]))
+                if self.mesh is not None:
+                    from repro_torch.parallel.sharding import sharding_context
+                    stack.enter_context(sharding_context(self.mesh))
                 result = cu.desc.fn(*cu.desc.args, **cu.desc.kwargs)
             cu.state = State.DONE
             cu.future.set_result(result)

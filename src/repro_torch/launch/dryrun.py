@@ -17,23 +17,24 @@ the reference's ``XLA_FLAGS``: it fixes the rank count for the process,
 and a process that plans must not also run a real group, so the dry-run
 runs in its own process.
 
-What a cell runs:
+What a cell runs, as one rank of the mesh:
 - train: ``make_sharded_train_step`` on ``shard_train_state`` DTensors
   placed by the rules, with the global batch (the port's step takes it
-  on every rank and keeps its slice);
-- prefill and decode: ``make_prefill_step``/``make_decode_step`` on the
-  rank's slice of the batch and the cache (their batch dims, cut by the
-  "batch" rule), with the params gathered whole: the port serves on
-  whole tensors (``serving/engine.py``; sharded serving is not ported).
-  The record gives both the resident shard bytes a rank holds at rest
-  (``resident_bytes``) and the gathered peak the port needs today
-  (``peak_mem_bytes``, which decides ``fits_hbm``).
+  on every rank and keeps its slice, and runs the model on the rank's
+  ``model`` shard of the params);
+- prefill and decode: ``make_prefill_step``/``make_decode_step`` inside
+  a ``sharding_context`` over the mesh, on the rank's serving params
+  (its ``model`` shard of each leaf by ``transformer.tp_layouts``, whole
+  over the batch axes, as ``serving/engine.py`` holds them), the rank's
+  slice of the batch (cut by the "batch" rule) and its cache (that batch
+  slice, its kv heads and SSM channels: ``cache_spec(local=True)``).
+The record gives the bytes a rank holds at rest (``resident_bytes``)
+and its peak (``peak_mem_bytes``, which decides ``fits_hbm``).
 
-The models run on whole tensors, so ranks that differ only in their
-``model`` coordinate repeat each other's work (tensor-parallel
-activations are not ported): a cell's FLOPs and bytes per rank do not
-fall with the ``model`` axis, and its record says so
-(``model_axis_repeats``).  Records are written to
+Over a ``model`` axis the step runs tensor-parallel
+(``models/transformer.py``): a rank's FLOPs fall with the axis, and the
+all-reduces of the row-parallel outputs count under "all-reduce"
+(``roofline.op_cost``).  Records are written to
 ``build/dryrun/<arch>__<shape>__<mesh>.json``.  Besides the reference's
 production meshes (``--mesh pod|multipod|both``), ``--mesh`` takes any
 mesh (``DxM`` or ``PxDxM``) and ``--batch``/``--seq`` resize the shape:
@@ -59,8 +60,9 @@ from repro_torch.models.common import (abstract_params, param_pspecs,
                                        tree_leaves, tree_map, tree_unflatten)
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.models.transformer import local_leaf, tp_layouts
 from repro_torch.parallel.sharding import (AxisRules, PartitionSpec,
-                                           axis_sizes)
+                                           axis_sizes, sharding_context)
 from repro_torch.roofline import analysis as ra
 from repro_torch.train import steps as steps_mod
 from repro_torch.train.steps import TrainState
@@ -70,9 +72,6 @@ PEAK_METHOD = ("MemTracker (torch.distributed._tools.mem_tracker) under "
                "FakeTensorMode: the live tensor storage of one rank's step, "
                "its inputs included; no allocator rounding or "
                "fragmentation")
-MODEL_AXIS_NOTE = ("the models run on whole tensors: ranks that differ only "
-                   "in their model coordinate repeat the same work "
-                   "(tensor-parallel activations are not ported)")
 
 
 def mesh_name(multi_pod: bool) -> str:
@@ -151,6 +150,32 @@ def _shard_bytes(meta_tree, pspecs, mesh) -> int:
         for m, ps in _pairs(meta_tree, pspecs))
 
 
+def serving_params(model, mesh, rules: AxisRules):
+    """Meta tensors of the rank's serving leaves: each leaf's ``model``
+    shard by ``transformer.tp_layouts`` (``local_leaf``), whole over the
+    batch axes."""
+    meta = abstract_params(model.specs)
+    return tree_unflatten(meta, [
+        torch.empty(local_leaf(m, spec, lay, mesh, rules).shape,
+                    dtype=m.dtype, device="meta")
+        for m, spec, lay in zip(tree_leaves(meta), tree_leaves(model.specs),
+                                tree_leaves(tp_layouts(model.specs,
+                                                       model.cfg)))])
+
+
+def serving_cache(model, shape, mesh, rules: AxisRules):
+    """Meta tensors of the rank's decode cache at `shape`: its slice of
+    the batch, its kv heads and SSM channels."""
+    with sharding_context(mesh, rules):
+        spec = model.cache_spec(shape.global_batch, shape.seq_len,
+                                local=True)
+    meta, ps = steps_mod.cache_specs(model, shape, mesh,
+                                     _batch_rules(rules), spec=spec)
+    return tree_unflatten(meta, [
+        torch.empty(local_shape(m.shape, p, mesh), dtype=m.dtype,
+                    device="meta") for m, p in _pairs(meta, ps)])
+
+
 def build_lowerable(cfg, shape, mesh, rules: AxisRules, pcfg: ParallelConfig):
     """Returns (step, example_args), the args fake tensors of one rank:
     call it inside a ``FakeTensorMode`` over a fake group spanning
@@ -158,9 +183,9 @@ def build_lowerable(cfg, shape, mesh, rules: AxisRules, pcfg: ParallelConfig):
     model = build_model(cfg)
     whole = lambda tree: tree_map(
         lambda m: torch.empty(m.shape, dtype=m.dtype), tree)
-    params = whole(abstract_params(model.specs))
 
     if shape.kind == "train":
+        params = whole(abstract_params(model.specs))
         step = steps_mod.make_sharded_train_step(model, pcfg, TrainConfig(),
                                                  mesh, rules)
         state = TrainState(params, adamw_init(params, pcfg.opt_state_dtype))
@@ -169,35 +194,47 @@ def build_lowerable(cfg, shape, mesh, rules: AxisRules, pcfg: ParallelConfig):
         batch, _ = steps_mod.batch_specs(cfg, shape, mesh, rules)
         return step, (state, whole(batch))
 
-    brules = _batch_rules(rules)
-    batch = _local(*steps_mod.batch_specs(cfg, shape, mesh, brules), mesh)
+    params = whole(serving_params(model, mesh, rules))
+    batch = _local(*steps_mod.batch_specs(cfg, shape, mesh,
+                                          _batch_rules(rules)), mesh)
+
+    def in_context(step):
+        def run(*args):
+            with sharding_context(mesh, rules):
+                return step(*args)
+        return run
+
     if shape.kind == "prefill":
-        return (steps_mod.make_prefill_step(model, max_len=shape.seq_len),
-                (params, batch))
-    cache = _local(*steps_mod.cache_specs(model, shape, mesh, brules), mesh)
-    return (steps_mod.make_decode_step(model),
+        return (in_context(steps_mod.make_prefill_step(
+            model, max_len=shape.seq_len)), (params, batch))
+    cache = whole(serving_cache(model, shape, mesh, rules))
+    return (in_context(steps_mod.make_decode_step(model)),
             (params, cache, batch["tokens"], batch["positions"]))
 
 
 def resident_bytes(cfg, shape, mesh, rules: AxisRules,
                    pcfg: ParallelConfig) -> dict:
-    """The bytes a rank holds at rest, by part, at the rules' placements
-    (the params, AdamW moments and count, its batch slice and its cache
-    shard)."""
+    """The bytes a rank holds at rest, by part: in training the params,
+    AdamW moments and count at the rules' placements and its batch slice;
+    in serving its serving params (`serving_params`), its batch slice
+    and its cache (`serving_cache`)."""
     model = build_model(cfg)
     meta = abstract_params(model.specs)
+    if shape.kind != "train":
+        out = {"params": _nbytes(serving_params(model, mesh, rules)),
+               "batch": _shard_bytes(*steps_mod.batch_specs(
+                   cfg, shape, mesh, _batch_rules(rules)), mesh)}
+        if shape.kind == "decode":
+            out["cache"] = _nbytes(serving_cache(model, shape, mesh, rules))
+        return out
     ps = param_pspecs(model.specs, mesh, rules)
     out = {"params": _shard_bytes(meta, ps, mesh)}
-    if shape.kind == "train":
-        opt = adamw_init(meta, pcfg.opt_state_dtype)   # on the meta device
-        out["opt_state"] = (_shard_bytes(opt.m, ps, mesh)
-                            + _shard_bytes(opt.v, ps, mesh)
-                            + opt.count.element_size())
+    opt = adamw_init(meta, pcfg.opt_state_dtype)   # on the meta device
+    out["opt_state"] = (_shard_bytes(opt.m, ps, mesh)
+                        + _shard_bytes(opt.v, ps, mesh)
+                        + opt.count.element_size())
     out["batch"] = _shard_bytes(*steps_mod.batch_specs(cfg, shape, mesh,
                                                        rules), mesh)
-    if shape.kind == "decode":
-        out["cache"] = _shard_bytes(*steps_mod.cache_specs(model, shape, mesh,
-                                                           rules), mesh)
     return out
 
 
@@ -240,9 +277,6 @@ def plan_cell(cfg, shape, mesh, rules: AxisRules | None = None,
            "roofline": roof.to_dict(),
            "fits_hbm": bool(peak <= ra.HBM_PER_CHIP),
            "hbm_per_chip": ra.HBM_PER_CHIP}
-    if sizes.get("model", 1) > 1:
-        rec["model_axis_repeats"] = sizes["model"]
-        rec["note"] = MODEL_AXIS_NOTE
     return rec
 
 

@@ -10,10 +10,10 @@ variants (explicit, named hypotheses), each planned by
 process).  A "_regroup" patch is ignored, as in the reference.  Results
 land in ``build/perf/<cell>__<variant>.json``.
 
-The models run on whole tensors (tensor-parallel activations are not
-ported), so a variant that moves only the ``model`` axis (the EP-2D
-layouts, sequence over model) shows no gain: ranks along ``model``
-repeat the same work.  Each record says so in its ``note``.
+A variant that moves only an expert or sequence layout over the
+``model`` axis (the EP-2D layouts, sequence over model) shows no gain:
+the MoE FFN runs whole on every ``model`` rank and no activation
+follows a sequence rule.  Each record says so in its ``note``.
 """
 import argparse
 import json

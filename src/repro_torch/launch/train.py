@@ -17,14 +17,18 @@ Over a device mesh: when a process group is up, or ``torchrun``'s
 environment names one (``torchrun --nproc-per-node N -m
 repro_torch.launch.train ...``; NCCL on the card, each rank on its
 ``LOCAL_RANK`` card, gloo on the CPU), every rank forms
-``make_local_mesh()`` (every rank on the data axis), submits its own
+``make_local_mesh(N)`` of ``--model-parallel N`` (ranks / N data x N
+model; N = 1 puts every rank on the data axis, and a model axis runs
+the models tensor-parallel, ``models/transformer.py``), submits its own
 pilot on its device, holds its shards of the state
 (``steps.shard_train_state``), steps through
 ``steps.make_sharded_train_step`` on its slice of the pipeline's global
 batch (every rank reads the same batches), saves through the gathering
 checkpoint and restores through ``restore(shardings=)`` the step rank 0
 last wrote whole (``agreed_latest_step``).  Rank 0 prints; every rank
-returns the run.
+returns the run.  ``--trace-step K`` runs the K-th step on the card under
+``torch.profiler`` on rank 0 and splits its device time among compute
+(every kernel and copy but NCCL's) and each collective (`trace_split`).
 
 Presets scale the *width/depth* of the chosen architecture family while
 keeping its structure (GQA ratios, MoE top-k, SSM dims), so every assigned
@@ -119,6 +123,7 @@ class TrainRun:
     peak_bytes: Optional[int]       # max_memory_allocated (the card only)
     tokens_per_step: int
     mesh: Any = None                # the DeviceMesh of a sharded run
+    trace: Optional[dict] = None    # rank 0's `trace_split` of one step
 
     @property
     def loss(self) -> float:
@@ -143,7 +148,51 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="inject a pilot failure at this step (demo)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--trace-step", type=int, default=0,
+                    help="profile this step on the card (rank 0) and "
+                         "print its device time by part")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the model axis of the mesh (under "
+                         "torchrun; it must divide the ranks)")
     return ap.parse_args(argv)
+
+
+# NCCL kernel name fragments -> the collective a traced step ran
+TRACE_PARTS = (("AllGather", "all-gather"),
+               ("ReduceScatter", "reduce-scatter"),
+               ("AllReduce", "all-reduce"), ("nccl", "other collective"))
+
+
+def trace_split(prof) -> dict:
+    """Device milliseconds of a profiled run by part: each NCCL kernel
+    under its collective, every other kernel and copy under "compute"."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        part = next((p for frag, p in TRACE_PARTS
+                     if frag.lower() in e.name.lower()), "compute")
+        out[part] = out.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def _profiled(fn, dev: torch.device, tries: int = 5):
+    """(fn(), its `trace_split`): fn under ``torch.profiler`` (CUDA
+    activity), after small sessions until the profiler delivers device
+    events (a process's first session may hold none)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1 << 20, device=dev)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as warm:
+            x.mul_(1.0)
+            torch.cuda.synchronize(dev)
+        if trace_split(warm):
+            break
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize(dev)
+    return out, trace_split(prof)
 
 
 def agreed_latest_step(ckpt: CheckpointManager, mesh) -> Optional[int]:
@@ -167,7 +216,13 @@ def run(argv=None) -> TrainRun:
         dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(dev)
     owned = init_distributed(dev)
-    mesh = make_local_mesh() if dist.is_initialized() else None
+    if args.model_parallel > 1 and (
+            not dist.is_initialized()
+            or dist.get_world_size() % args.model_parallel):
+        raise ValueError(f"--model-parallel {args.model_parallel} needs a "
+                         f"process group (torchrun) whose ranks it divides")
+    mesh = (make_local_mesh(args.model_parallel) if dist.is_initialized()
+            else None)
     rank = dist.get_rank() if mesh is not None else 0
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = scaled_config(args.arch, args.preset)
@@ -225,6 +280,7 @@ def run(argv=None) -> TrainRun:
     gnorms: List[float] = []
     t_hist: List[float] = []
     failed_once = False
+    trace = None
     step = start
     try:
         while step < args.steps:
@@ -241,11 +297,20 @@ def run(argv=None) -> TrainRun:
                 say(f"[train] recovered at step {step}")
                 continue
             t0 = time.perf_counter()
-            cu = manager.run(lambda s=state, b=batch: step_fn(s, b),
-                             affinity="trainer")
-            state, metrics = cu.result()
+            run_step = lambda s=state, b=batch: manager.run(
+                lambda: step_fn(s, b), affinity="trainer").result()
+            if (step - start + 1 == args.trace_step and rank == 0
+                    and dev.type == "cuda"):
+                (state, metrics), trace = _profiled(run_step, dev)
+            else:
+                state, metrics = run_step()
             losses.append(float(metrics["loss"]))       # waits for the step
             dt = time.perf_counter() - t0
+            if trace is not None and step - start + 1 == args.trace_step:
+                say(f"[train] trace of step {step + 1}: wall "
+                    f"{dt * 1e3:.3f} ms; device ms "
+                    + ", ".join(f"{k} {v:.3f}"
+                                for k, v in sorted(trace.items())))
             t_hist.append(dt)
             gnorms.append(float(metrics["grad_norm"]))
             step += 1
@@ -279,7 +344,7 @@ def run(argv=None) -> TrainRun:
                     state=state, ckpt=ckpt, losses=losses, grad_norms=gnorms,
                     step_s=t_hist, peak_bytes=peak,
                     tokens_per_step=args.batch * args.seq,
-                    mesh=None if owned else mesh)
+                    mesh=None if owned else mesh, trace=trace)
 
 
 def main(argv=None) -> float:

@@ -31,6 +31,16 @@ decode caches the compressed latent (kv_lora_rank + rope_dim per token,
 slot pos % max_len, no window) and uses the absorbed-matmul trick, which
 is the point of MLA's serving efficiency.
 
+Over a ``model`` axis (tensor parallelism, ``models/common.py``) a GQA
+block reads its head counts from its local weights: column-parallel
+``wq``/``wk``/``wv`` give the rank's heads, the row-parallel ``wo``'s
+partial sums are added over the ranks.  Where the q heads divide the axis
+and the kv heads do not, ``wk``/``wv`` are whole on every rank and each
+rank projects only the kv heads its q heads read (`kv_select`); their
+gradients on each rank are partial sums, which ``copy_to_model`` on the
+weights adds up.  Where the q heads do not divide (Hymba, Whisper over 16)
+the block runs whole on every rank.  MLA runs whole on every rank.
+
 Training (``train=True``, passed down from ``Model.train_forward``) never
 reaches a kernel: the flash kernel is forward-only (its op refuses inputs
 that require grad), and the JAX package trains through jnp
@@ -42,7 +52,7 @@ recomputed in the backward pass, as the reference's
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -52,6 +62,9 @@ from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models.common import (ParamSpec, apply_rope, linear,
                                        rms_norm)
+from repro_torch.parallel.sharding import (copy_to_model, model_group,
+                                           model_local_shape,
+                                           reduce_from_model)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 # query rows per chunk of MLA's prefill attention.  The chunk does not
@@ -84,34 +97,100 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return linear(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
+def kv_select(nq: int, nkv: int, nq_local: int, rank: int):
+    """The kv heads that q heads ``rank * nq_local ...`` read (q head h
+    reads kv head ``h // (nq // nkv)``), as a slice where they take equal
+    groups of those q heads, else one kv head per q head (a list)."""
+    g = nq // nkv
+    ids = [(rank * nq_local + j) // g for j in range(nq_local)]
+    lo, hi = ids[0], ids[-1] + 1
+    if nq_local % (hi - lo) == 0 and all(
+            ids.count(i) == nq_local // (hi - lo) for i in range(lo, hi)):
+        return slice(lo, hi)
+    return ids
+
+
+def tp_heads(params, cfg: ModelConfig):
+    """How a GQA block's params lie over the ``model`` axis -> (split,
+    kv): `split` when the q heads are the rank's shard (fewer than the
+    config's), `kv` the `kv_select` of the whole ``wk``/``wv`` that the
+    rank's q heads read where the kv heads did not divide, else None."""
+    nq_local = params["wq"].shape[-2]
+    if nq_local == cfg.num_heads:
+        return False, None
+    mg = model_group()
+    if mg is None or nq_local * mg.size != cfg.num_heads:
+        raise ValueError(f"{nq_local} of {cfg.num_heads} q heads outside a "
+                         f"sharding context over the model axis")
+    if params["wk"].shape[-2] < cfg.num_kv_heads:
+        return True, None
+    return True, kv_select(cfg.num_heads, cfg.num_kv_heads, nq_local,
+                           mg.rank)
+
+
+def local_heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(q heads, kv heads) a rank's GQA cache and kernels see under the
+    current sharding context: the heads of its ``wq``/``wk`` shards under
+    the context's rules (`model_local_shape`), and where its q heads are
+    a shard but its ``wk`` is whole, the `kv_select` of the kv heads."""
+    specs = gqa_specs(cfg)
+    nq = model_local_shape(specs["wq"].logical, specs["wq"].shape)[-2]
+    nkv = model_local_shape(specs["wk"].logical, specs["wk"].shape)[-2]
+    if nq == cfg.num_heads or nkv < cfg.num_kv_heads:
+        return nq, nkv
+    sel = kv_select(cfg.num_heads, nkv, nq, model_group().rank)
+    return nq, (sel.stop - sel.start if isinstance(sel, slice)
+                else len(sel))
+
+
+def _kv_weight(w: torch.Tensor, kv) -> torch.Tensor:
+    """``wk``/``wv`` cut to the heads `kv` selects; the whole weight's
+    gradient then sums the ranks' parts."""
+    return w if kv is None else copy_to_model(w)[:, kv]
+
+
 def gqa_forward(params, x, *, cfg: ModelConfig, positions,
                 window: int, train: bool = False) -> torch.Tensor:
     """Full-sequence (train / prefill) GQA with RoPE.  `positions` must be
     ``arange(S)`` in every row (``model._positions``): the attention
-    kernel places query and kv row i at position i."""
+    kernel places query and kv row i at position i.  On the rank's local
+    heads (`tp_heads`)."""
+    split, kv = tp_heads(params, cfg)
+    if split:
+        x = copy_to_model(x)
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
-    v = _project(x, params["wv"])
+    k = apply_rope(_project(x, _kv_weight(params["wk"], kv)), positions,
+                   cfg.rope_theta)
+    v = _project(x, _kv_weight(params["wv"], kv))
     if train:
         out = _attend_train(q, k, v, q_positions=positions,
                             kv_positions=positions, causal=True,
                             window=window)
     else:
         out = flash_attention_op(q, k, v, causal=True, window=window)
-    return _out_proj(out, params["wo"])
+    y = _out_proj(out, params["wo"])
+    return reduce_from_model(y) if split else y
 
 
 def gqa_prefill_kv(params, x, *, cfg: ModelConfig, positions):
-    """K/V for cache population during prefill (post-RoPE)."""
-    k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
-    v = _project(x, params["wv"])
+    """K/V for cache population during prefill (post-RoPE), the rank's
+    local kv heads."""
+    _, kv = tp_heads(params, cfg)
+    k = apply_rope(_project(x, _kv_weight(params["wk"], kv)), positions,
+                   cfg.rope_theta)
+    v = _project(x, _kv_weight(params["wv"], kv))
     return k, v
 
 
 def init_gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int,
-                        window: int) -> Dict[str, Tuple[Tuple[int, ...], tuple]]:
+                        window: int, local: bool = False
+                        ) -> Dict[str, Tuple[Tuple[int, ...], tuple]]:
+    """The cache's (shape, logical axes); with `local`, its kv heads are
+    the rank's (`local_heads`)."""
     sc = min(max_len, window) if window else max_len
     nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if local:
+        nkv = local_heads(cfg)[1]
     long = max_len >= 2 ** 18 or batch == 1
     seq_ax = "long_seq" if long else "kv_seq"
     return {
@@ -125,14 +204,18 @@ def gqa_decode(params, x, cache, *, cfg: ModelConfig, positions,
                window: int):
     """One-token decode. x: (B,1,d); positions: (B,) int32 absolute
     position; cache: this layer's {"k","v","pos"} tensors, written in
-    place (they may be views into a stacked cache).  Returns (y, cache)."""
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    g = nq // nkv
+    place (they may be views into a stacked cache).  Returns (y, cache).
+    The head counts are the local weights' and cache's (`tp_heads`)."""
+    split, kv = tp_heads(params, cfg)
+    hd = cfg.resolved_head_dim
     b = x.shape[0]
     pos2 = positions[:, None]
     q = apply_rope(_project(x, params["wq"]), pos2, cfg.rope_theta)
-    k = apply_rope(_project(x, params["wk"]), pos2, cfg.rope_theta)
-    v = _project(x, params["wv"])
+    k = apply_rope(_project(x, _kv_weight(params["wk"], kv)), pos2,
+                   cfg.rope_theta)
+    v = _project(x, _kv_weight(params["wv"], kv))
+    nq, nkv = q.shape[2], k.shape[2]
+    g = nq // nkv
     k_cache, v_cache, pos_cache = cache["k"], cache["v"], cache["pos"]
     sc = k_cache.shape[1]
     idx = (torch.arange(b, device=x.device), (positions % sc).long())
@@ -158,7 +241,8 @@ def gqa_decode(params, x, cache, *, cfg: ModelConfig, positions,
         out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v_cache.dtype),
                            v_cache)
         out = out.reshape(b, 1, nq, hd)
-    return _out_proj(out, params["wo"]), cache
+    y = _out_proj(out, params["wo"])
+    return (reduce_from_model(y) if split else y), cache
 
 
 def _attend_chunk(qc, qp, k32, v, kv_positions, causal: bool, window: int):
@@ -320,22 +404,32 @@ def mla_decode(params, x, cache, *, cfg: ModelConfig, positions):
 
 def encoder_attention(params, x, *, cfg: ModelConfig, positions,
                       train: bool = False):
-    """Bidirectional GQA with RoPE over the encoder's frames."""
+    """Bidirectional GQA with RoPE over the encoder's frames, on the
+    rank's local heads (`tp_heads`)."""
+    split, kv = tp_heads(params, cfg)
+    if split:
+        x = copy_to_model(x)
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
-    v = _project(x, params["wv"])
+    k = apply_rope(_project(x, _kv_weight(params["wk"], kv)), positions,
+                   cfg.rope_theta)
+    v = _project(x, _kv_weight(params["wv"], kv))
     if train:
         out = _attend_train(q, k, v, q_positions=positions,
                             kv_positions=positions, causal=False)
     else:
         out = flash_attention_op(q, k, v, causal=False)
-    return _out_proj(out, params["wo"])
+    y = _out_proj(out, params["wo"])
+    return reduce_from_model(y) if split else y
 
 
 def cross_attention(params, x, enc_k, enc_v, *, cfg: ModelConfig,
                     train: bool = False):
     """x: (B,S,d) decoder side (the prompt, or one decode token); enc_k,
-    enc_v: (B,T,nkv,hd) precomputed (`cross_kv`).  No RoPE, no mask."""
+    enc_v: (B,T,nkv,hd) precomputed (`cross_kv`, the rank's kv heads).
+    No RoPE, no mask."""
+    split, _ = tp_heads(params, cfg)
+    if split:
+        x = copy_to_model(x)
     q = _project(x, params["wq"])
     if train:
         b, s, t = x.shape[0], x.shape[1], enc_k.shape[1]
@@ -345,8 +439,15 @@ def cross_attention(params, x, enc_k, enc_v, *, cfg: ModelConfig,
                             kv_positions=zeros(t), causal=False)
     else:
         out = flash_attention_op(q, enc_k, enc_v, causal=False)
-    return _out_proj(out, params["wo"])
+    y = _out_proj(out, params["wo"])
+    return reduce_from_model(y) if split else y
 
 
-def cross_kv(params, enc_out):
-    return _project(enc_out, params["wk"]), _project(enc_out, params["wv"])
+def cross_kv(params, enc_out, cfg: Optional[ModelConfig] = None):
+    """The encoder's K/V for cross attention: the rank's kv heads (whole
+    params without `cfg`)."""
+    split, kv = (False, None) if cfg is None else tp_heads(params, cfg)
+    if split:
+        enc_out = copy_to_model(enc_out)
+    return (_project(enc_out, _kv_weight(params["wk"], kv)),
+            _project(enc_out, _kv_weight(params["wv"], kv)))

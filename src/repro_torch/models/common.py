@@ -7,11 +7,17 @@ device from an explicit ``torch.Generator``; ``abstract_params`` gives
 meta-device tensors of the same shapes and dtypes (the JAX package's
 ``ShapeDtypeStruct`` tree) and ``param_pspecs`` the PartitionSpec of each
 leaf on a mesh.  The math keeps the JAX package's casts: fp32 inside the
-norm, RoPE and the activation, then back to the activation dtype.  The
-models call no ``with_logical_constraint``: they run on whole tensors
-(``train.steps.make_sharded_train_step`` gathers the params first).
-``cross_entropy_loss`` is the training loss: an fp32 log-sum-exp with
-the optional z-loss and mask.
+norm, RoPE and the activation, then back to the activation dtype.
+Under a sharding_context whose ``model`` axis is more than one rank the
+models run on each rank's ``model`` shard of the params, Megatron-style
+(``parallel.sharding``'s `copy_to_model` and `reduce_from_model`): a
+block whose weights are split there (the local width below the config's)
+enters through `copy_to_model` and leaves through `reduce_from_model`,
+as `dense_ffn` with ``split``; a block whose weights are whole on every
+rank (heads that do not divide the axis, MoE, MLA) computes the whole
+output and issues no collective.  ``cross_entropy_loss`` is the training
+loss: an fp32 log-sum-exp with the optional z-loss and mask, over the
+rank's slice of the vocabulary where the logits are vocab-parallel.
 """
 from __future__ import annotations
 
@@ -21,6 +27,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.sharding import (copy_to_model, gather_over_model,
+                                           max_over_model, model_group,
+                                           reduce_from_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +146,13 @@ def init_params(spec_tree, generator: torch.Generator,
     return tree_map(lambda s: _init_leaf(s, generator, device), spec_tree)
 
 
+def iter_init(spec_tree, generator: torch.Generator, device: torch.device):
+    """The leaves of `init_params` one at a time, drawn in its order: a
+    generator that keeps no leaf it has yielded."""
+    for spec in tree_leaves(spec_tree):
+        yield _init_leaf(spec, generator, device)
+
+
 def abstract_params(spec_tree):
     """The spec tree as meta-device tensors: shapes and dtypes, no data."""
     return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
@@ -193,25 +210,84 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return linear(h, w_down)
 
 
-def dense_ffn(x: torch.Tensor, ffn_params, act: str = "swiglu"):
-    """Dense FFN: 3-matrix SwiGLU or 2-matrix GELU (starcoder2/whisper)."""
+def dense_ffn(x: torch.Tensor, ffn_params, act: str = "swiglu",
+              split: bool = False):
+    """Dense FFN: 3-matrix SwiGLU or 2-matrix GELU (starcoder2/whisper).
+    With `split`, the params are the rank's ``mlp`` shard: column-parallel
+    ``w_gate``/``w_up``, row-parallel ``w_down``, its partial sums added
+    over the ``model`` ranks."""
+    if split:
+        x = copy_to_model(x)
     if act == "swiglu":
-        return swiglu(x, ffn_params["w_gate"], ffn_params["w_up"],
-                      ffn_params["w_down"])
-    u = linear(x, ffn_params["w_up"])
-    h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
-    return linear(h, ffn_params["w_down"])
+        y = swiglu(x, ffn_params["w_gate"], ffn_params["w_up"],
+                   ffn_params["w_down"])
+    else:
+        u = linear(x, ffn_params["w_up"])
+        h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
+        y = linear(h, ffn_params["w_down"])
+    return reduce_from_model(y) if split else y
+
+
+def vocab_offset(n_local: int, vocab_size: int) -> int:
+    """The global index of the first of `n_local` vocabulary entries: 0
+    for the whole vocabulary, the rank's slice start for a vocab-parallel
+    slice (equal slices in ``model`` rank order)."""
+    if n_local == vocab_size:
+        return 0
+    mg = model_group()
+    if mg is None or n_local * mg.size != vocab_size:
+        raise ValueError(f"{n_local} entries are no slice of a "
+                         f"{vocab_size}-entry vocabulary over the model "
+                         f"axis")
+    return mg.rank * n_local
+
+
+def vocab_argmax(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """argmax over the last dim of whole or vocab-parallel logits; ties go
+    to the lowest global index, as ``torch.argmax`` breaks them on whole
+    logits."""
+    lo = vocab_offset(logits.shape[-1], vocab_size)
+    if logits.shape[-1] == vocab_size:
+        return torch.argmax(logits, dim=-1)
+    val, idx = torch.max(logits.float(), dim=-1)        # first local max
+    best = max_over_model(val)
+    # the lowest global index among the ranks that hold the max
+    cand = torch.where(val == best, idx + lo, vocab_size)
+    return -max_over_model(-cand)
+
+
+def gather_vocab(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Whole logits from whole or vocab-parallel ones."""
+    vocab_offset(logits.shape[-1], vocab_size)
+    if logits.shape[-1] == vocab_size:
+        return logits
+    return gather_over_model(logits, dim=-1)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
-                       z_loss: float = 0.0) -> torch.Tensor:
+                       z_loss: float = 0.0,
+                       vocab_size: Optional[int] = None) -> torch.Tensor:
     """logits (B,S,V) [bf16 ok], labels (B,S) int -> the mean token NLL
     (over `mask`'s weight where given), an fp32 log-sum-exp; `z_loss`
-    adds z_loss * lse**2 per token."""
+    adds z_loss * lse**2 per token.  Logits with fewer than `vocab_size`
+    entries are the rank's vocab-parallel slice: the log-sum-exp then
+    takes its max and its sum of exponentials over the ``model`` ranks,
+    and the gold logit comes from the rank that holds it."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if vocab_size is None or logits.shape[-1] == vocab_size:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        lo = vocab_offset(logits.shape[-1], vocab_size)
+        m = max_over_model(logits.detach().amax(dim=-1))
+        sumexp = reduce_from_model(torch.exp(logits - m[..., None]).sum(-1))
+        lse = torch.log(sumexp) + m
+        local = labels.long() - lo
+        mine = (local >= 0) & (local < logits.shape[-1])
+        gold = torch.gather(logits, -1,
+                            torch.where(mine, local, 0)[..., None])[..., 0]
+        gold = reduce_from_model(torch.where(mine, gold, 0.0))
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * lse.square()

@@ -36,6 +36,13 @@ loop and writes each layer's cache in place (``_scan_decode`` in the JAX
 package carries the cache through a scan for the same reason), so
 `decode` returns the very cache objects it was given.  Only
 ``train_forward`` runs DeepSeek-V3's multi-token prediction.
+
+Under a sharding_context over a ``model`` axis (tensor parallelism,
+``models/transformer.py``) every entry point takes the rank's local params
+(``transformer.tp_layouts``) and returns the rank's vocabulary slice of
+the logits; the caches prefill builds hold the rank's kv heads and SSM
+channels, and ``cache_spec(batch, max_len, local=True)`` gives their
+shapes.
 """
 from __future__ import annotations
 
@@ -130,19 +137,19 @@ def _mla_cache_from_prefill(kv, positions, max_len: int):
 
 
 def _stack_cache_spec(cfg: ModelConfig, num_layers: int, batch: int,
-                      max_len: int, window: int):
+                      max_len: int, window: int, local: bool = False):
     """(shape, logical) specs for the stacked decode cache."""
     out: Dict[str, Any] = {}
     spec = None
     if cfg.attention == "gqa":
-        spec = attn.init_gqa_cache_spec(cfg, batch, max_len, window)
+        spec = attn.init_gqa_cache_spec(cfg, batch, max_len, window, local)
     elif cfg.attention == "mla":
         spec = attn.init_mla_cache_spec(cfg, batch, max_len)
     if spec is not None:
         out["kv"] = {k: ((num_layers,) + sh, ("layers",) + lg)
                      for k, (sh, lg) in spec.items()}
     if cfg.ssm is not None:
-        spec = ssm_mod.init_ssm_state_spec(cfg, batch)
+        spec = ssm_mod.init_ssm_state_spec(cfg, batch, local)
         out["ssm"] = {k: ((num_layers,) + sh, ("layers",) + lg)
                       for k, (sh, lg) in spec.items()}
     return out
@@ -249,27 +256,36 @@ def build_model(cfg: ModelConfig) -> Model:
                     x = tfm.layer_decode(
                         tfm.layer_slice(params[key], i), x,
                         tfm.layer_slice(cache[name], i), cfg,
-                        positions=positions, window=cfg.sliding_window)
+                        positions=positions, window=cfg.sliding_window,
+                        d_ff=tfm.stack_d_ff(cfg, name))
         logits = tfm.lm_logits(params, x, cfg)
         return logits[:, 0], cache
 
-    def cache_spec(batch: int, max_len: int):
+    def cache_spec(batch: int, max_len: int, local: bool = False):
+        """The cache's tree of (shape, logical axes); with `local`, its kv
+        heads and SSM channels are the rank's under the current
+        sharding_context (``attention.local_heads``,
+        ``ssm.local_inner``)."""
         if cfg.parallel_ssm:
             return tuple(
                 {"kv": attn.init_gqa_cache_spec(cfg, batch, max_len,
-                                                tfm._layer_window(cfg, i)),
-                 "ssm": ssm_mod.init_ssm_state_spec(cfg, batch)}
+                                                tfm._layer_window(cfg, i),
+                                                local),
+                 "ssm": ssm_mod.init_ssm_state_spec(cfg, batch, local)}
                 for i in range(cfg.num_layers))
         if cfg.encoder_layers:
-            spec = _stack_cache_spec(cfg, cfg.num_layers, batch, max_len, 0)
+            spec = _stack_cache_spec(cfg, cfg.num_layers, batch, max_len, 0,
+                                     local)
+            nkv = (attn.local_heads(cfg)[1] if local
+                   else cfg.num_kv_heads)
             shape = (cfg.num_layers, batch, cfg.encoder_seq_len,
-                     cfg.num_kv_heads, cfg.resolved_head_dim)
+                     nkv, cfg.resolved_head_dim)
             logical = ("layers", "batch", None, "act_kv_heads",
                        "act_head_dim")
             spec["cross"] = ((shape, logical), (shape, logical))
             return {"main": spec}
         return {name: _stack_cache_spec(cfg, n, batch, max_len,
-                                        cfg.sliding_window)
+                                        cfg.sliding_window, local)
                 for name, _, n in tfm.stacks(cfg)}
 
     return Model(cfg=cfg, specs=specs, init=init,

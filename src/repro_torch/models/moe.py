@@ -8,11 +8,13 @@ plus shared experts, sigmoid router with the aux-free bias, which moves
 the selection only, and ``router_scale``).  What differs from the JAX
 package:
 
-- the sharding constraints are gone: the models run on whole tensors
-  (a sharded step gathers the params), and the one batch-wide quantity
-  the loss is not linear in, the Switch aux loss's dispatch fractions,
-  goes through ``parallel.sharding.batch_mean`` (the global batch's mean
-  under a sharded step);
+- the sharding constraints are gone: the MoE FFN runs whole on every
+  ``model`` rank (the sharded step gathers its params whole, the
+  serving engine keeps them whole; expert parallelism over the axis is
+  not ported), so its output is whole and adds no collective; the one
+  batch-wide quantity the loss is not linear in, the Switch aux loss's
+  dispatch fractions, goes through ``parallel.sharding.batch_mean`` (the
+  global batch's mean under a sharded step);
 - top-k takes the experts in a stable descending sort, so that equal
   scores keep the lower expert first, as ``jax.lax.top_k`` does
   (``torch.topk`` promises no order among ties);

@@ -9,8 +9,17 @@ and holds its Pallas kernel to the same recurrence.  Training
 (``train=True``) runs that chunked scan, `chunked_scan`: the kernel is
 forward-only.  Decode is one step of the recurrence in plain torch, as in
 the JAX package, and writes the conv history and the state into the cache
-in place.  The reference's ``with_logical_constraint`` call is not made:
-the models run on whole tensors (a sharded step gathers the params).
+in place.
+
+Over a ``model`` axis (where the reference constrains ``xz`` to
+``act_ssm_inner``) a rank runs its shard of the inner channels: ``w_in``
+is column-parallel, the depthwise conv, ``A``, ``D``, ``dt`` and the scan
+run on the local channels, ``w_x`` is row-parallel, so its (dt, B, C)
+are summed over the ranks before ``w_dt``, and ``w_out``'s partial sums
+are added over the ranks.  ``w_in`` holds the x and z halves side by
+side, so its plain ``model`` shard is not the rank's channels: a rank
+holds `paired_columns` of it (``models.transformer.local_leaf``), cut
+where `paired_split` says; `unpaired_columns` puts it back.
 """
 from __future__ import annotations
 
@@ -23,6 +32,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.selective_scan.ops import selective_scan_op
 from repro_torch.models.common import ParamSpec, linear
+from repro_torch.parallel.sharding import (MODEL_AXIS, axis_sizes,
+                                           copy_to_model, current_context,
+                                           model_group, model_placements,
+                                           reduce_from_model)
 
 
 def ssm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -44,6 +57,69 @@ def ssm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "d_skip": ParamSpec((di,), ("ssm_inner",), "ones", dtype=torch.float32),
         "w_out": ParamSpec((di, d), ("ssm_inner", "embed"), "scaled"),
     }
+
+
+def paired_columns(w: torch.Tensor, parts: int, index: int) -> torch.Tensor:
+    """The x and z columns of ``w_in`` (its last dim, 2 * di) of channel
+    block `index` of `parts`, side by side: the rank's ``w_in``."""
+    di = w.shape[-1] // 2
+    n = di // parts
+    lo = index * n
+    return torch.cat([w[..., lo:lo + n], w[..., di + lo:di + lo + n]], -1)
+
+
+def unpaired_columns(w: torch.Tensor, width: int, parts: int,
+                     index: int) -> torch.Tensor:
+    """The inverse of `paired_columns`: the rank's ``w_in`` (or its
+    gradient) `w` in its x and z columns of a zero leaf whose last dim is
+    `width` (2 * di)."""
+    out = w.new_zeros(w.shape[:-1] + (width,))
+    di, n = width // 2, w.shape[-1] // 2
+    lo = index * n
+    out[..., lo:lo + n] = w[..., :n]
+    out[..., di + lo:di + lo + n] = w[..., n:]
+    return out
+
+
+def paired_split(spec: ParamSpec, mesh, rules) -> bool:
+    """Whether ``w_in`` (`spec`) is cut on `mesh`: the rules shard its
+    inner channels and their count divides the ``model`` axis."""
+    from torch.distributed.tensor import Shard
+    place = model_placements(spec.logical, spec.shape, mesh, rules)
+    m = axis_sizes(mesh).get(MODEL_AXIS, 1)
+    return (any(isinstance(p, Shard) for p in place)
+            and (spec.shape[-1] // 2) % m == 0)
+
+
+def split_inner(params, cfg: ModelConfig) -> bool:
+    """Whether the block's params are the rank's shard of the inner
+    channels (fewer than the config's)."""
+    di = params["w_in"].shape[-1] // 2
+    if di == cfg.ssm.expand * cfg.d_model:
+        return False
+    mg = model_group()
+    if mg is None or di * mg.size != cfg.ssm.expand * cfg.d_model:
+        raise ValueError(f"{di} SSM channels outside a sharding context "
+                         f"over the model axis")
+    return True
+
+
+def local_inner(cfg: ModelConfig) -> int:
+    """The inner channels a rank holds under the current sharding context:
+    a shard where the context's rules cut ``w_in`` (`paired_split`)."""
+    di = cfg.ssm.expand * cfg.d_model
+    ctx, mg = current_context(), model_group()
+    if mg is None or not paired_split(ssm_specs(cfg)["w_in"], ctx.mesh,
+                                      ctx.rules):
+        return di
+    return di // mg.size
+
+
+def _x_proj(xc: torch.Tensor, w_x: torch.Tensor, split: bool):
+    """The row-parallel ``w_x``: (dt_low, B, C) whole on every rank, their
+    gradient summed over the ranks (each rank's channels use them)."""
+    x_dbl = linear(xc, w_x)
+    return copy_to_model(reduce_from_model(x_dbl)) if split else x_dbl
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -147,6 +223,9 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     s_cfg = cfg.ssm
     dtr = s_cfg.resolved_dt_rank(cfg.d_model)
     n = s_cfg.state_dim
+    split = split_inner(params, cfg)
+    if split:
+        x = copy_to_model(x)
 
     xi, z = linear(x, params["w_in"]).chunk(2, dim=-1)
     conv_state = state["conv"] if state is not None else None
@@ -154,7 +233,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
                                 conv_state)
     xc = F.silu(xc.float()).to(x.dtype)
 
-    dt_low, b_ssm, c_ssm = torch.split(linear(xc, params["w_x"]),
+    dt_low, b_ssm, c_ssm = torch.split(_x_proj(xc, params["w_x"], split),
                                        [dtr, n, n], dim=-1)
     dt = linear(dt_low, params["w_dt"]).float()
     dt = F.softplus(dt + params["dt_bias"])
@@ -166,14 +245,18 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
                     scan_dtype=s_cfg.scan_dtype)
     y = y * F.silu(z.float()).to(x.dtype)
     out = linear(y, params["w_out"])
+    if split:
+        out = reduce_from_model(out)
     if return_state:
         return out, {"conv": new_conv.contiguous(), "ssm": h_end}
     return out
 
 
-def init_ssm_state_spec(cfg: ModelConfig, batch: int):
+def init_ssm_state_spec(cfg: ModelConfig, batch: int, local: bool = False):
+    """The state's (shape, logical axes); with `local`, the rank's inner
+    channels (`local_inner`)."""
     s = cfg.ssm
-    di = s.expand * cfg.d_model
+    di = local_inner(cfg) if local else s.expand * cfg.d_model
     return {
         "conv": ((batch, s.conv_kernel - 1, di), ("batch", None, "act_ssm_inner")),
         "ssm": ((batch, di, s.state_dim), ("batch", "act_ssm_inner", "ssm_state")),
@@ -188,6 +271,7 @@ def mamba_decode(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     s_cfg = cfg.ssm
     dtr = s_cfg.resolved_dt_rank(cfg.d_model)
     n = s_cfg.state_dim
+    split = split_inner(params, cfg)
 
     xi, z = linear(x, params["w_in"]).chunk(2, dim=-1)   # (B,1,di)
     # conv over (history ++ new)
@@ -197,7 +281,7 @@ def mamba_decode(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
           + params["conv_b"])
     xc = F.silu(xc.float()).to(x.dtype)
 
-    dt_low, b_ssm, c_ssm = torch.split(linear(xc, params["w_x"]),
+    dt_low, b_ssm, c_ssm = torch.split(_x_proj(xc, params["w_x"], split),
                                        [dtr, n, n], dim=-1)
     dt = linear(dt_low, params["w_dt"]).float()
     dt = F.softplus(dt + params["dt_bias"])[:, 0]        # (B,di)
@@ -212,6 +296,8 @@ def mamba_decode(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     y = (y + x0 * params["d_skip"]).to(x.dtype)[:, None]
     y = y * F.silu(z.float()).to(x.dtype)
     out = linear(y, params["w_out"])
+    if split:
+        out = reduce_from_model(out)
     state["conv"].copy_(window[:, 1:])
     state["ssm"].copy_(h_new)
     return out, state

@@ -23,6 +23,16 @@ attention and scan routes and checkpoints each layer by ``cfg.remat``, as
 the JAX package's ``jax.checkpoint`` of its scanned layer body: "full"
 recomputes the layer in the backward pass, "dots" saves its matmul
 outputs and recomputes the rest (``checkpoint_dots``), "none" saves all.
+
+Over a ``model`` axis of more than one rank (a sharding_context, as the
+reference's ``with_logical_constraint`` sites) every function here runs
+on the rank's local params, `tp_layouts`: the attention, FFN and SSM
+blocks whose weights are split add their row-parallel outputs over the
+ranks before the residual (``models/common.py``), the embedding is
+vocab-parallel (each rank looks up its rows and the ranks' lookups are
+summed) and so are the logits (`lm_logits` gives the rank's slice of
+the vocabulary).  A block whole on every rank (MoE, MLA, heads that do
+not divide the axis) gives the whole output and adds nothing.
 """
 from __future__ import annotations
 
@@ -38,7 +48,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamSpec, dense_ffn, linear,
-                                       rms_norm, stack_specs, tree_map)
+                                       rms_norm, stack_specs, tree_map,
+                                       vocab_offset)
+from repro_torch.parallel.sharding import (copy_to_model, local_slice,
+                                           model_placements,
+                                           reduce_from_model)
 
 Params = Dict[str, Any]
 
@@ -117,9 +131,8 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
         specs["proj1"] = ParamSpec((dv, d), (None, "embed"), "scaled")
         specs["proj2"] = ParamSpec((d, d), ("embed", None), "scaled")
     if cfg.is_moe and cfg.moe.first_k_dense:
-        dense_ff = cfg.moe.first_dense_d_ff or cfg.d_ff
         specs["layers_dense"] = stack_specs(
-            layer_specs(cfg, ffn="dense", d_ff=dense_ff),
+            layer_specs(cfg, ffn="dense", d_ff=dense_d_ff(cfg)),
             cfg.moe.first_k_dense)
         specs["layers"] = stack_specs(
             layer_specs(cfg, ffn="moe"),
@@ -129,15 +142,59 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
             layer_specs(cfg, ffn="moe" if cfg.is_moe else "dense"),
             cfg.num_layers)
     if cfg.mtp_depth:  # DeepSeek-V3 multi-token prediction module
-        dense_ff = (cfg.moe.first_dense_d_ff if cfg.is_moe else 0) or cfg.d_ff
         specs["mtp"] = {
             "norm_h": ParamSpec((d,), ("embed",), "ones"),
             "norm_e": ParamSpec((d,), ("embed",), "ones"),
             "proj": ParamSpec((2 * d, d), (None, "embed"), "scaled"),
-            "layer": layer_specs(cfg, ffn="dense", d_ff=dense_ff),
+            "layer": layer_specs(cfg, ffn="dense", d_ff=dense_d_ff(cfg)),
             "final_norm": ParamSpec((d,), ("embed",), "ones"),
         }
     return specs
+
+
+def dense_d_ff(cfg: ModelConfig) -> int:
+    """The FFN width of the dense layers before a MoE stack and of the
+    MTP module's layer."""
+    return (cfg.moe.first_dense_d_ff if cfg.is_moe else 0) or cfg.d_ff
+
+
+def stack_d_ff(cfg: ModelConfig, name: str) -> int:
+    """The dense FFN width of the layers of stack `name` (``stacks``)."""
+    return dense_d_ff(cfg) if name == "dense" else cfg.d_ff
+
+
+# ---------------------------------------------------------------------------
+# A rank's leaves over the "model" axis
+# ---------------------------------------------------------------------------
+
+def tp_layouts(specs, cfg: ModelConfig, path: Tuple = ()):
+    """For each leaf of `specs`, how a rank of the ``model`` axis holds it
+    in the tensor-parallel models: "whole" (MoE and MLA, run whole on
+    every rank), "paired" (the SSM's ``w_in``: `ssm.paired_columns`) or
+    "shard" (its ``model`` shard under the rules, which may be all of it
+    where the dim does not divide)."""
+    if isinstance(specs, dict):
+        return {k: tp_layouts(v, cfg, path + (k,)) for k, v in specs.items()}
+    if "moe" in path or ("attn" in path and cfg.attention == "mla"):
+        return "whole"
+    if path[-2:] == ("ssm", "w_in"):
+        return "paired"
+    return "shard"
+
+
+def local_leaf(x, spec: ParamSpec, layout: str, mesh, rules):
+    """The rank's leaf of the whole `x` (a tensor or numpy array) in the
+    tensor-parallel models, by `layout` (`tp_layouts`); no collective."""
+    if layout == "whole":
+        return x
+    if layout == "paired":
+        if not ssm_mod.paired_split(spec, mesh, rules):
+            return x
+        return ssm_mod.paired_columns(torch.as_tensor(x), mesh.size(
+            mesh.mesh_dim_names.index("model")),
+            mesh.get_local_rank("model"))
+    return local_slice(x, mesh, model_placements(spec.logical, spec.shape,
+                                                 mesh, rules))
 
 
 def stacks(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
@@ -168,11 +225,16 @@ def layer_slice(stack: Params, i: int) -> Params:
     return tree_map(lambda t: t[i], stack)
 
 
-def _ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig):
-    """The layer's FFN half with its residual -> (x, MoE aux loss or 0)."""
+def _ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+         d_ff: Optional[int] = None):
+    """The layer's FFN half with its residual -> (x, MoE aux loss or 0);
+    a dense FFN of `d_ff` (default ``cfg.d_ff``) whose local width is
+    less is the rank's ``mlp`` shard."""
     if "ffn" in lp:
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + dense_ffn(h2, lp["ffn"], cfg.ffn_act).to(x.dtype), 0.0
+        split = lp["ffn"]["w_up"].shape[-1] < (d_ff or cfg.d_ff)
+        return x + dense_ffn(h2, lp["ffn"], cfg.ffn_act,
+                             split=split).to(x.dtype), 0.0
     if "moe" in lp:
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
         y, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
@@ -182,7 +244,7 @@ def _ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions, window: int, need_cache: bool = False,
-                  train: bool = False):
+                  train: bool = False, d_ff: Optional[int] = None):
     """Full-sequence layer.  Returns (x, MoE aux loss or 0, the attention
     cache's entries -- (k, v) for GQA, (c_kv, k_rope) for MLA -- or None,
     ssm state or None); the caches only with `need_cache`."""
@@ -216,12 +278,13 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             branch = branch + s_out
     x = x + branch.to(x.dtype)
-    x, aux = _ffn(lp, x, cfg)
+    x, aux = _ffn(lp, x, cfg, d_ff)
     return x, aux, cache_kv, new_ssm_state
 
 
 def layer_decode(lp: Params, x: torch.Tensor, cache, cfg: ModelConfig, *,
-                 positions, window: int) -> torch.Tensor:
+                 positions, window: int,
+                 d_ff: Optional[int] = None) -> torch.Tensor:
     """One-token layer step; ``cache["kv"]`` and ``cache["ssm"]`` (those
     the layer has) are written in place; an enc-dec decoder layer reads
     its encoder K/V from ``cache["cross"]``."""
@@ -254,7 +317,7 @@ def layer_decode(lp: Params, x: torch.Tensor, cache, cfg: ModelConfig, *,
         else:
             branch = branch + s_out
     x = x + branch.to(x.dtype)
-    return _ffn(lp, x, cfg)[0]
+    return _ffn(lp, x, cfg, d_ff)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +362,8 @@ def decoder_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       else cfg.sliding_window)
             layer = _remat(functools.partial(
                 layer_forward, cfg=cfg, positions=positions, window=window,
-                need_cache=need_cache, train=train), cfg, train)
+                need_cache=need_cache, train=train,
+                d_ff=stack_d_ff(cfg, name)), cfg, train)
             x, a, kv, st = layer(layer_slice(params[key], i), x)
             aux = aux + a
             kvs.append(kv)
@@ -342,7 +406,7 @@ def _encdec_layer(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
     x = x + attn.gqa_forward(lp["attn"], h, cfg=cfg, positions=positions,
                              window=0, train=train).to(x.dtype)
     hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
-    ek, ev = attn.cross_kv(lp["xattn"], enc_out)
+    ek, ev = attn.cross_kv(lp["xattn"], enc_out, cfg)
     x = x + attn.cross_attention(lp["xattn"], hx, ek, ev, cfg=cfg,
                                  train=train).to(x.dtype)
     x = _ffn(lp, x, cfg)[0]
@@ -377,13 +441,33 @@ def encdec_decoder_forward(params: Params, x: torch.Tensor,
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    """The tokens' embeddings; from a vocab-parallel table (the rank's
+    rows), each rank looks up the tokens it holds and the ranks' lookups
+    are summed."""
+    table = params["embed"]
+    dtype = getattr(torch, cfg.dtype)
+    if table.shape[0] == cfg.vocab_size:
+        return table[tokens.long()].to(dtype)
+    local = tokens.long() - vocab_offset(table.shape[0], cfg.vocab_size)
+    mine = (local >= 0) & (local < table.shape[0])
+    x = table[torch.where(mine, local, 0)].to(dtype)
+    return reduce_from_model(torch.where(mine[..., None], x, 0))
+
+
+def _head(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    """The logits of normed `x`: the rank's vocabulary slice of them where
+    the head is vocab-parallel (its input then enters through
+    ``copy_to_model``)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if head.shape[-1] < cfg.vocab_size:
+        x = copy_to_model(x)
+    return linear(x, head)
 
 
 def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    """(..., V) logits, or the rank's (..., V / model) slice of them."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return linear(x, head)
+    return _head(params, x, cfg)
 
 
 def mtp_forward(params: Params, h: torch.Tensor, tokens: torch.Tensor,
@@ -398,7 +482,7 @@ def mtp_forward(params: Params, h: torch.Tensor, tokens: torch.Tensor,
     e_n = rms_norm(emb_next, mp["norm_e"], cfg.norm_eps)
     z = linear(torch.cat([h_n, e_n], dim=-1), mp["proj"])
     z, _, _, _ = layer_forward(mp["layer"], z, cfg, positions=positions,
-                               window=cfg.sliding_window, train=True)
+                               window=cfg.sliding_window, train=True,
+                               d_ff=dense_d_ff(cfg))
     z = rms_norm(z, mp["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return linear(z, head)
+    return _head(params, z, cfg)

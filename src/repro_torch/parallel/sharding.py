@@ -222,9 +222,26 @@ def named_sharding(
 def with_logical_constraint(x: torch.Tensor, *logical_dims: Optional[str]):
     """Sharding-constrain an intermediate by logical axis names.
 
-    A no-op outside a sharding_context and on a plain tensor (the models
-    run on whole tensors); a DTensor is redistributed to the resolved
-    placements.
+    A no-op outside a sharding_context and on a plain tensor; a DTensor
+    is redistributed to the resolved placements.  The models call none:
+    they run on each rank's local ``model`` shard of the params
+    (Megatron-style), and where the reference constrains an activation
+    the port issues the collective that constraint implies
+    (`copy_to_model`, `reduce_from_model`):
+
+    - q/k/v to ``act_heads``/``act_kv_heads`` (reference
+      ``attention.py:93-95``): column-parallel ``wq``/``wk``/``wv`` give
+      the rank's local heads;
+    - ``act_mlp`` (``common.py:116, 127``): column-parallel
+      ``w_gate``/``w_up``, then row-parallel ``w_down``;
+    - ``xz`` to ``act_ssm_inner`` (``ssm.py:128``): column-parallel
+      ``w_in``; conv, ``A``, ``D`` and the scan on the local channels; the
+      row-parallel ``w_x``'s (dt, B, C) all-reduced before ``w_dt``;
+    - the residual to ``act_embed`` (``transformer.py:171, 180``): the
+      row-parallel outputs (``wo``, ``w_down``, ``w_out``) all-reduced;
+    - embed and logits to ``act_vocab`` (``transformer.py:351, 358,
+      376``): the vocab-parallel embedding, logits and cross-entropy
+      (``models/common.py``), and `vocab_argmax` for greedy decode.
     """
     from torch.distributed.tensor import DTensor
     ctx = current_context()
@@ -232,6 +249,135 @@ def with_logical_constraint(x: torch.Tensor, *logical_dims: Optional[str]):
         return x
     spec = resolve_pspec(logical_dims, x.shape, ctx.mesh, ctx.rules)
     return x.redistribute(ctx.mesh, placements(spec, ctx.mesh))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the "model" axis (Megatron's f and g)
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS = "model"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """The calling rank's ``model`` axis: its process group, size and
+    coordinate."""
+    group: object
+    size: int
+    rank: int
+
+
+def model_group() -> Optional[ModelGroup]:
+    """The ``model`` axis of the current sharding_context's mesh, or None
+    where no collective is due: outside a context, on a mesh with no
+    ``model`` axis or one of size 1, or on a device-less mesh."""
+    ctx = current_context()
+    mesh = None if ctx is None else ctx.mesh
+    if (mesh is None or not hasattr(mesh, "get_group")
+            or MODEL_AXIS not in (mesh.mesh_dim_names or ())):
+        return None
+    if mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)) == 1:
+        return None
+    return ModelGroup(mesh.get_group(MODEL_AXIS),
+                      mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)),
+                      mesh.get_local_rank(MODEL_AXIS))
+
+
+def model_placements(logical_dims: Sequence[Optional[str]],
+                     shape: Sequence[int], mesh, rules: AxisRules) -> list:
+    """The placements of a leaf (`logical_dims`, `shape`) on `mesh` under
+    `rules` with only its ``model`` shard kept: how a rank holds it in the
+    tensor-parallel models (whole over the batch axes)."""
+    from torch.distributed.tensor import Replicate
+    place = placements(resolve_pspec(logical_dims, shape, mesh, rules), mesh)
+    return [p if name == MODEL_AXIS else Replicate()
+            for name, p in zip(mesh.mesh_dim_names, place)]
+
+
+def model_local_shape(logical_dims: Sequence[Optional[str]],
+                      shape: Sequence[int]) -> Tuple[int, ...]:
+    """The shape of the calling rank's ``model`` shard of a leaf under the
+    current sharding_context's mesh and rules (`model_placements`); the
+    whole shape where `model_group` is None."""
+    from torch.distributed.tensor import Shard
+    mg = model_group()
+    out = list(shape)
+    if mg is not None:
+        ctx = current_context()
+        for p in model_placements(logical_dims, shape, ctx.mesh, ctx.rules):
+            if isinstance(p, Shard):
+                out[p.dim] //= mg.size
+    return tuple(out)
+
+
+def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient backward: the input
+    of a column-parallel product (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward, identity backward: the output of a
+    row-parallel product (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """`x` entering a column-parallel product (or a replicated weight
+    whose users on each rank see only part of its gradient): the
+    gradient is summed over the ``model`` ranks.  `x` itself where
+    `model_group` is None."""
+    mg = model_group()
+    return x if mg is None else _CopyToModel.apply(x, mg.group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the ``model`` ranks of a row-parallel product's
+    partial `x`; `x` itself where `model_group` is None."""
+    mg = model_group()
+    return x if mg is None else _ReduceFromModel.apply(x, mg.group)
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the ``model`` ranks (no gradient)."""
+    import torch.distributed as dist
+    mg = model_group()
+    return x if mg is None else _all_reduce(x.detach(), mg.group,
+                                            dist.ReduceOp.MAX)
+
+
+def gather_over_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The ``model`` ranks' `x` concatenated along `dim` in rank order
+    (no gradient)."""
+    import torch.distributed as dist
+    mg = model_group()
+    if mg is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mg.size)]
+    dist.all_gather(parts, x.contiguous(), group=mg.group)
+    return torch.cat(parts, dim=dim)
 
 
 def batch_dims(mesh, rules: AxisRules) -> list:

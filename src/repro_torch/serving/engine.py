@@ -8,7 +8,24 @@ on the pilot's device; the param leaves are flattened in sorted-key order
 its shard as its uint16 bit pattern, with the dtypes kept beside the tree
 structure; every tensor of a replica's loop lives on its pilot's
 ``devices[0]``, named explicitly (the resident loop's thread does not set
-a current CUDA device).  The mesh/sharding branch of the runtime is gone.
+a current CUDA device).
+
+Over a multi-device pilot (a description's ``mesh_shape`` under a process
+group, ``core/backends/inprocess.py``) the engine runs SPMD: every rank
+of the pilot's mesh builds the same engine on its part of the pilot,
+submits the same requests in the same order and runs the same loop.
+Prefill and decode run under ``sharding_context(pilot.mesh, rules)``, as
+the reference's runtime does, and so tensor-parallel over the ``model``
+axis (``models/transformer.py``): each rank holds only its ``model``
+shard of each flattened leaf (``transformer.local_leaf``), drawn leaf by
+leaf where the engine draws the params, in a DataUnit named for its rank
+(``<name>.r<rank>.shards``; give each rank its own checkpoint directory).
+Greedy sampling is the distributed argmax (``common.vocab_argmax``).
+Every decision that feeds a collective is agreed: rank 0 picks which
+requests a pass admits (and into which rows) and when the loop stops,
+and broadcasts it; the other ranks take those requests from their own
+queues.  The batch is whole on every rank (the ``data`` axis of a pilot
+mesh repeats it).
 
 The paper's whole argument is that retained resources (compute AND
 memory) are the right home for data-intensive work.  The old
@@ -55,6 +72,7 @@ accounting (``tokens_served`` counts active rows only).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -68,7 +86,8 @@ from repro_torch.carry import tensor_from_numpy, tensor_to_numpy
 from repro_torch.core.device import to_device
 from repro_torch.core.pilot import ComputeUnitDescription, State
 from repro_torch.core.taskengine import read_partition
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import (gather_vocab, tree_leaves,
+                                       vocab_argmax)
 
 
 # ---------------------------------------------------------------------------
@@ -106,17 +125,22 @@ def splice_row(cache, row_cache, row: int):
 
 
 def sample_tokens(logits, active, generator: torch.Generator,
-                  temperature: float):
+                  temperature: float, vocab_size: Optional[int] = None):
     """Next-token sampling with inactive rows masked out: retired and
     padded rows still occupy the batch (shapes stay static), but their
     sampled token is forced to 0 so they never leak into outputs — and
     callers count only ``active`` rows as served.  Greedy (temperature 0)
-    is argmax; otherwise draws come from `generator` (on logits' device)."""
+    is argmax; otherwise draws come from `generator` (on logits' device).
+    Logits of fewer than `vocab_size` entries are the rank's
+    vocab-parallel slice (under the pilot mesh's sharding_context): the
+    argmax is taken over the ranks, a draw from the gathered logits."""
+    vocab_size = vocab_size or logits.shape[-1]
     if temperature > 0:
+        logits = gather_vocab(logits, vocab_size)
         probs = torch.softmax(logits.float() / temperature, dim=-1)
         tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
     else:
-        tok = torch.argmax(logits, dim=-1)
+        tok = vocab_argmax(logits, vocab_size)
     return torch.where(active, tok, 0).to(torch.int32)
 
 
@@ -229,6 +253,19 @@ class _Replica:
         with self.cond:
             self.cond.notify_all()
 
+    def take(self, rid: int, stop: threading.Event) -> ServeRequest:
+        """Remove request `rid` from the queue, waiting for it to arrive
+        (a rank of a pilot mesh admits what rank 0 admitted)."""
+        with self.cond:
+            while True:
+                for req in self.queue:
+                    if req.rid == rid:
+                        self.queue.remove(req)
+                        return req
+                if stop.is_set():
+                    raise RuntimeError(f"request {rid} never arrived")
+                self.cond.wait(0.05)
+
     def drain(self) -> List[ServeRequest]:
         """Every request this replica still owes: queued + in rows.  Only
         called after the resident loop has exited (the reaper joins the
@@ -244,11 +281,21 @@ class _Replica:
 class _Runtime:
     """Per-pilot retained serving state (lives in pilot._jit_cache)."""
 
-    def __init__(self, params, prefill, decode, device: torch.device):
+    def __init__(self, params, prefill, decode, device: torch.device,
+                 mesh=None):
         self.params = params
         self.prefill = prefill
         self.decode = decode
         self.device = device
+        self.mesh = mesh
+
+    def context(self):
+        """The sharding context the loop runs in: the pilot mesh's (its
+        tensor-parallel collectives), or none."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.parallel.sharding import AxisRules, sharding_context
+        return sharding_context(self.mesh, AxisRules())
 
 
 # ---------------------------------------------------------------------------
@@ -262,12 +309,13 @@ class ServingEngine:
         replicas.  Pass ``supervise=True`` sessions for mid-stream
         pilot-loss recovery.
     model: a built model exposing ``prefill(params, batch, max_len)`` and
-        ``decode(params, cache, tokens, positions)`` plus ``cfg`` (the
-        contract of repro_torch.models.model.Model; the tests drive the
-        engine with a stub model through the same surface).
+        ``decode(params, cache, tokens, positions)`` plus ``cfg`` and
+        ``specs`` (the contract of repro_torch.models.model.Model; the
+        tests drive the engine with a stub model through the same
+        surface).
     params: the param tree (nested dicts of tensors) to shard (default:
-        ``model.init`` from a generator seeded `seed`, on the session's
-        device).
+        drawn from ``model.specs`` as ``model.init`` draws, from a
+        generator seeded `seed`, on the session's device).
     batch_size: decode rows per replica (equal-batch comparisons against
         the isolated stack use the same number).
     page_tokens: KV-page flush granularity — a request's durable state is
@@ -297,6 +345,7 @@ class ServingEngine:
         self._paths: List[Tuple] = []         # param tree structure
         self._bf16: List[bool] = []           # leaves stored as bf16 bits
         self._n_shards = 0
+        self._mesh = None                     # the pilot mesh (SPMD)
         self._replicas: Dict[str, _Replica] = {}
         self._unrouted: deque = deque()
         self._lock = threading.Lock()
@@ -323,21 +372,20 @@ class ServingEngine:
         if not pilots:
             raise RuntimeError("ServingEngine.deploy: the session has no "
                                "running pilots")
-        if self._params is None:
-            dev = self.session.device
-            gen = torch.Generator(device=dev).manual_seed(self._seed)
-            self._params = self.model.init(gen, device=dev)
-        flat = flatten_params(self._params)
-        self._paths = [path for path, _ in flat]
-        self._bf16 = [t.dtype == torch.bfloat16 for _, t in flat]
-        np_leaves = [tensor_to_numpy(t, bf16_bits=True) for _, t in flat]
+        meshes = [p.mesh for p in pilots if getattr(p, "mesh", None)]
+        if meshes:
+            if len(pilots) != 1:
+                raise RuntimeError("ServingEngine.deploy: a pilot mesh is "
+                                   "served as the session's one pilot")
+            import torch.distributed as dist
+            self._mesh = meshes[0]
+            self.name = f"{self.name}.r{dist.get_rank()}"
+            # the admissions' group, its communicator up before serving
+            dist.broadcast(torch.zeros(1, device=pilots[0].devices[0]),
+                           src=int(self._mesh.mesh.flatten()[0]),
+                           group=self._mesh_group())
+        np_leaves = self._shard_leaves()
         self._n_shards = len(np_leaves)
-        # the shards are the params from here on: drop the engine's
-        # references before any pilot rebuilds them on its device, so that
-        # one device copy of the weights is live (none, once the caller
-        # drops its own)
-        del flat
-        self._params = None
         pds = self.session.data_service
         durable = pds.checkpoint_store is not None
         repl = (self._replication if self._replication is not None
@@ -361,6 +409,42 @@ class ServingEngine:
             self.session.serving_engines.append(self)
         return self
 
+    def _shard_leaves(self) -> List[np.ndarray]:
+        """The flattened param leaves as host arrays (bf16 as bits), each
+        the rank's ``model`` shard over a pilot mesh.  Drawn here, leaf by
+        leaf, from a generator seeded `seed` where no params were given
+        (``common.iter_init``: the draws of ``model.init``); the engine
+        keeps no reference to the params after: the shards are the params
+        from here on, so that one device copy of the weights is live (none,
+        once the caller drops its own)."""
+        from repro_torch.models.common import iter_init
+        from repro_torch.models.transformer import local_leaf, tp_layouts
+        from repro_torch.parallel.sharding import AxisRules
+        specs = self.model.specs
+        if self._params is None:
+            gen = torch.Generator(device=self.session.device)
+            gen.manual_seed(self._seed)
+            self._paths = [path for path, _ in flatten_params(specs)]
+            leaves = iter_init(specs, gen, self.session.device)
+        else:
+            pairs = flatten_params(self._params)
+            self._paths = [path for path, _ in pairs]
+            leaves = (t for _, t in pairs)
+        self._params = None
+        if self._mesh is not None:
+            cut = zip([s for _, s in flatten_params(specs)],
+                      [lay for _, lay in flatten_params(
+                          tp_layouts(specs, self.cfg))])
+            leaves = (local_leaf(t, spec, lay, self._mesh,
+                                 AxisRules()).contiguous()
+                      for t, (spec, lay) in zip(leaves, cut))
+        self._bf16, out = [], []
+        for t in leaves:
+            self._bf16.append(t.dtype == torch.bfloat16)
+            out.append(tensor_to_numpy(t, bf16_bits=True))
+            del t
+        return out
+
     def _attach_replica(self, pilot) -> None:
         """Join one pilot to the serving fleet: shard replicas pinned
         into its tiers (best effort — a capacity-refused leaf is pulled
@@ -376,6 +460,21 @@ class ServingEngine:
             name=f"{self.name}-decode")
         with self._lock:
             self._replicas[pilot.id] = rep
+
+    def wait_ready(self, timeout: float = 600.0) -> float:
+        """Block until every replica's runtime (its params rebuilt on its
+        device) is built; returns the seconds waited."""
+        t0 = time.monotonic()
+        while True:
+            with self._lock:
+                reps = list(self._replicas.values())
+            if all((self.name, "runtime") in r.pilot._jit_cache
+                   for r in reps):
+                return time.monotonic() - t0
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"serving runtimes not built after "
+                                   f"{timeout} s")
+            time.sleep(0.01)
 
     # -- request intake / routing ---------------------------------------
     def submit(self, prompt, max_new_tokens: int) -> ServeRequest:
@@ -453,7 +552,8 @@ class ServingEngine:
             def pf(params, batch):
                 return model.prefill(params, batch, max_len)
 
-            return _Runtime(params, pf, model.decode, dev)
+            return _Runtime(params, pf, model.decode, dev,
+                            getattr(pilot, "mesh", None))
         return pilot.jit_cached((self.name, "runtime"), build)
 
     def _prefill_batch(self, ctx_rows: np.ndarray, device) -> dict:
@@ -480,7 +580,67 @@ class ServingEngine:
         reaper's failover.  It runs under ``torch.inference_mode()``: the
         cache it splices and decodes in place is inference state."""
         with torch.inference_mode():
-            return self._decode_rows(rep)
+            with self._pilot_runtime(rep.pilot).context():
+                return self._decode_rows(rep)
+
+    def _admit(self, rep: _Replica, free: List[int], wave: bool,
+               idle: bool, dev) -> Tuple[bool, List[ServeRequest]]:
+        """(stop, the requests this pass admits into `free` rows, in row
+        order).  With `wave` (no cache yet) one request and the queued
+        ones of its context length, up to a batch; else one a free row,
+        waiting briefly for the first where the replica is `idle`.  Over
+        a pilot mesh rank 0 decides and broadcasts (stop, rids), and the
+        other ranks take those requests from their queues."""
+        mesh = self._mesh
+        ranks = None if mesh is None else mesh.mesh.flatten().tolist()
+        lead = mesh is None or mesh.get_rank() == ranks[0]
+        stop = admit = None
+        if lead:
+            stop = (rep.stop.is_set()
+                    or rep.pilot.state is not State.RUNNING)
+            admit = []
+            for r in ([] if stop else free):
+                req = rep.pop(timeout=0.02 if idle and r == free[0] else 0)
+                if req is None:
+                    break
+                admit.append(req)
+                if wave:
+                    want = len(req.ctx)
+                    while len(admit) < self.batch_size:
+                        nxt = rep.pop(timeout=0)
+                        if nxt is None:
+                            break
+                        if len(nxt.ctx) != want:
+                            rep.push(nxt)   # ragged ctx: spliced next pass
+                            break
+                        admit.append(nxt)
+                    break
+        if mesh is None:
+            return stop, admit
+        import torch.distributed as dist
+        if lead:    # one copy to the device
+            pad = [-1] * (self.batch_size - len(admit))
+            msg = torch.tensor([int(stop), len(admit)]
+                               + [q.rid for q in admit] + pad).to(dev)
+        else:
+            msg = torch.empty(self.batch_size + 2, dtype=torch.int64,
+                              device=dev)
+        dist.broadcast(msg, src=ranks[0], group=self._mesh_group())
+        got = msg.tolist()
+        if lead:
+            return stop, admit
+        return bool(got[0]), [rep.take(rid, rep.stop)
+                              for rid in got[2:2 + got[1]]]
+
+    def _mesh_group(self):
+        """The process group over all the pilot mesh's ranks (made once,
+        at deploy, by every rank)."""
+        if not hasattr(self, "_group"):
+            import torch.distributed as dist
+            ranks = self._mesh.mesh.flatten().tolist()
+            self._group = (dist.group.WORLD if ranks == list(
+                range(dist.get_world_size())) else dist.new_group(ranks))
+        return self._group
 
     def _decode_rows(self, rep: _Replica) -> int:
         pilot = rep.pilot
@@ -534,43 +694,31 @@ class ServingEngine:
                 positions[r] = len(req.ctx) + vision - 1
 
         while True:
-            if rep.stop.is_set():
-                return served
-            if pilot.state is not State.RUNNING:
-                # node loss: abandon the rows — the reaper recovers every
-                # owed request from the durable KV pages
-                rep.dead = True
-                with self._lock:
-                    self.counters["replica_deaths"] += 1
-                return served
             # -- refill freed rows (the missing piece of the old loop) --
             free = [r for r in range(B) if rows[r] is None]
             idle = all(q is None for q in rows)
-            for r in free:
-                req = rep.pop(timeout=0.02 if idle and r == free[0] else 0)
-                if req is None:
-                    break
-                if cache is None:
-                    wave = [req]
-                    want = len(req.ctx)
-                    while len(wave) < B:
-                        nxt = rep.pop(timeout=0)
-                        if nxt is None:
-                            break
-                        if len(nxt.ctx) != want:
-                            rep.push(nxt)   # ragged ctx: spliced next pass
-                            break
-                        wave.append(nxt)
-                    fill_wave(wave)
-                    break
-                fill_row(r, req)
-                idle = False
+            stop, admit = self._admit(rep, free, cache is None, idle, dev)
+            if stop:
+                if (not rep.stop.is_set()
+                        and pilot.state is not State.RUNNING):
+                    # node loss: abandon the rows — the reaper recovers
+                    # every owed request from the durable KV pages
+                    rep.dead = True
+                    with self._lock:
+                        self.counters["replica_deaths"] += 1
+                return served
+            if admit and cache is None:
+                fill_wave(admit)
+            else:
+                for r, req in zip(free, admit):
+                    fill_row(r, req)
             active = np.array([q is not None for q in rows])
             if not active.any():
                 continue
             # -- sample (inactive rows masked), account, retire ----------
             tok = sample_tokens(logits, to_device(active, dev), gen,
-                                self.temperature)
+                                self.temperature,
+                                getattr(self.cfg, "vocab_size", None))
             tok_np = tok.cpu().numpy()
             n_active = int(active.sum())
             with self._lock:

@@ -16,10 +16,12 @@ the step's time by.
 (``launch/dryrun.py``): the state lives as DTensors placed by the
 logical-axis rules (``param_pspecs``; the AdamW moments take the params'
 placements), each data rank takes its slice of the global batch by
-``batch_specs``, and a step gathers the params whole, runs the same
-``loss_and_grads`` on the rank's slice, reduce-scatters the fp32
-gradients back to the params' placements (their mean over the batch
-axes) and runs AdamW on the local shards.  ``batch_specs`` and
+``batch_specs``, and a step gathers each param over the batch axes only
+(its ``model`` shard stays: tensor-parallel activations,
+``models/transformer.py``), runs the same ``loss_and_grads`` on the
+rank's slice and its ``model`` shard, reduce-scatters the fp32 gradients
+over the batch axes back to the params' placements (their mean over
+those axes) and runs AdamW on the local shards.  ``batch_specs`` and
 ``cache_specs`` give the meta-device shapes and PartitionSpecs of a
 batch and a decode cache at a ``ShapeConfig``.
 """
@@ -37,6 +39,9 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models.common import (cross_entropy_loss, tree_leaves,
                                        tree_map, tree_unflatten)
 from repro_torch.models.model import Model
+from repro_torch.models.ssm import (paired_columns, paired_split,
+                                   unpaired_columns)
+from repro_torch.models.transformer import tp_layouts
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.parallel.sharding import (AxisRules, batch_dims,
@@ -62,7 +67,9 @@ def compute_loss(model: Model, params, batch, tcfg: TrainConfig):
     "total_loss"}), fp32 0-d tensors."""
     out = model.train_forward(params, batch)
     labels = batch["labels"]
-    loss = cross_entropy_loss(out["logits"], labels, z_loss=tcfg.z_loss)
+    vocab = model.cfg.vocab_size
+    loss = cross_entropy_loss(out["logits"], labels, z_loss=tcfg.z_loss,
+                              vocab_size=vocab)
     total = loss + MOE_AUX_COEF * out["aux"]
     metrics = {"loss": loss, "aux": out["aux"]}
     if "mtp_logits" in out:
@@ -72,7 +79,8 @@ def compute_loss(model: Model, params, batch, tcfg: TrainConfig):
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
         mask[:, -1] = 0.0
-        mtp = cross_entropy_loss(out["mtp_logits"], mtp_labels, mask=mask)
+        mtp = cross_entropy_loss(out["mtp_logits"], mtp_labels, mask=mask,
+                                 vocab_size=vocab)
         total = total + MTP_COEF * mtp
         metrics["mtp_loss"] = mtp
     metrics["total_loss"] = total
@@ -180,14 +188,21 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
     every rank), and returns the state (updated in place, as
     ``make_train_step``'s) and metrics that every rank holds alike.
 
-    Ranks that differ only off the batch axes (the mesh axes of the
-    "batch" rule; off them, the ``model`` coordinate) compute the same
-    slice; the model runs on whole tensors, inside a ``sharding_context``
-    so that its batch-wide means are the global batch's
-    (``sharding.batch_mean``).  The global gradient norm sums each leaf's
+    Ranks that differ only in their ``model`` coordinate take the same
+    batch slice and split its work: each runs the model on its leaves of
+    ``transformer.tp_layouts`` (a "shard" leaf gathered over the batch
+    axes only, a "whole" one, MoE and MLA, gathered whole, the SSM's
+    ``w_in`` gathered whole and cut to the rank's channels), inside a
+    ``sharding_context`` that issues the tensor-parallel collectives and
+    takes batch-wide means over the global batch
+    (``sharding.batch_mean``).  A "shard" leaf's gradient is the rank's
+    shard and is reduce-scattered over the batch axes only; a "whole"
+    leaf's is whole and alike on every ``model`` rank; a cut ``w_in``'s
+    is put back in its columns of a zero leaf and summed over the
+    ``model`` ranks too.  The global gradient norm sums each leaf's
     squares over only the mesh dims that shard it, so a replicated leaf
-    counts once.  At one rank the step computes what ``make_train_step``
-    computes, bit for bit.
+    counts once.  At one rank, and over a ``model`` axis of 1, the step
+    computes what ``make_train_step`` computes, bit for bit.
     """
     import torch.distributed as dist
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -199,11 +214,41 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
                          "bfloat16)")
     bdims = batch_dims(mesh, rules)
     n_batch = math.prod(mesh.size(m) for m in bdims)
-    grad_place = [Partial() if m in bdims else Replicate()
-                  for m in range(mesh.ndim)]
     groups = {m: mesh.get_group(m) for m in range(mesh.ndim)
               if mesh.size(m) > 1}
     cfg = model.cfg
+    names = list(mesh.mesh_dim_names)
+    mdim = names.index("model") if "model" in names else None
+    # per leaf: "whole", "shard" or "cut" (a paired leaf the rules split)
+    kinds = ["cut" if lay == "paired" and paired_split(spec, mesh, rules)
+             else "whole" if lay in ("whole", "paired") else "shard"
+             for lay, spec in zip(tree_leaves(tp_layouts(model.specs, cfg)),
+                                  tree_leaves(model.specs))]
+
+    def model_leaf(p, kind):
+        """The rank's leaf of the DTensor `p` for the model (a
+        collective)."""
+        if kind == "shard":
+            keep = [pl if m == mdim else Replicate()
+                    for m, pl in enumerate(p.placements)]
+            return p.redistribute(mesh, keep).to_local()
+        whole = p.full_tensor()
+        if kind == "cut":
+            return paired_columns(whole, mesh.size(mdim),
+                                  mesh.get_local_rank("model"))
+        return whole
+
+    def grad_src(p, kind, g):
+        """(the rank's gradient, its placements: partial sums over the
+        batch dims and, for a cut leaf, the model dim)."""
+        if kind == "cut":
+            g = unpaired_columns(g, p.shape[-1], mesh.size(mdim),
+                                 mesh.get_local_rank("model"))
+        on_model = {"cut": Partial(), "whole": Replicate()}.get(
+            kind, None if mdim is None else p.placements[mdim])
+        src = [Partial() if m in bdims else on_model if m == mdim
+               else Replicate() for m in range(mesh.ndim)]
+        return g, src
 
     def local_batch(batch):
         """The rank's slice of each of the global batch's microbatches,
@@ -224,7 +269,9 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
 
     def train_step(state: TrainState, batch):
         with torch.no_grad(), record_function("gather"):
-            params = gather_state(state.params)
+            params = tree_unflatten(state.params, [
+                model_leaf(p, k)
+                for p, k in zip(tree_leaves(state.params), kinds)])
         # backward on this thread (not autograd's device thread): the
         # checkpointed layers' recomputation then sees the context too
         with sharding_context(mesh, rules), \
@@ -238,10 +285,11 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
             local = []
             for i, p in enumerate(shards):
                 g = grads[i].float()
-                grads[i] = None            # one full fp32 leaf at a time
+                grads[i] = None            # one fp32 leaf at a time
                 if n_batch > 1:
                     g = g / n_batch
-                local.append(from_partial(g, mesh, grad_place, p.placements))
+                g, src = grad_src(p, kinds[i], g)
+                local.append(from_partial(g, mesh, src, p.placements))
                 del g
             keys = sorted(metrics)
             mvec = torch.stack([metrics[k] for k in keys])
@@ -360,10 +408,12 @@ def _cache_leaf_dtype(path) -> torch.dtype:
     return torch.bfloat16
 
 
-def cache_specs(model: Model, shape: ShapeConfig, mesh, rules: AxisRules):
+def cache_specs(model: Model, shape: ShapeConfig, mesh, rules: AxisRules,
+                spec=None):
     """(meta-tensor tree, PartitionSpec tree) for the decode cache at this
-    shape.  A leaf of ``model.cache_spec`` is a ((shape), (logical axes))
-    pair; its path's last key names its dtype."""
+    shape (or of `spec`, a ``model.cache_spec`` tree).  A leaf of
+    ``model.cache_spec`` is a ((shape), (logical axes)) pair; its path's
+    last key names its dtype."""
     def is_leaf(x):
         return (isinstance(x, tuple) and len(x) == 2
                 and isinstance(x[0], tuple)
@@ -377,7 +427,8 @@ def cache_specs(model: Model, shape: ShapeConfig, mesh, rules: AxisRules):
         return type(tree)(walk(v, path + (i,), fn)
                           for i, v in enumerate(tree))
 
-    spec = model.cache_spec(shape.global_batch, shape.seq_len)
+    if spec is None:
+        spec = model.cache_spec(shape.global_batch, shape.seq_len)
     meta = walk(spec, (), lambda path, leaf: torch.empty(
         leaf[0], dtype=_cache_leaf_dtype(path), device="meta"))
     ps = walk(spec, (), lambda path, leaf: resolve_pspec(

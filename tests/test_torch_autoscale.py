@@ -40,6 +40,7 @@ from repro_torch.core.backends.base import register_backend  # noqa: E402
 from repro_torch.core.backends.simulated import (  # noqa: E402
     ChaosEvent, ChaosPolicy, SimulatedClusterBackend)
 from repro_torch.core.pilot import State  # noqa: E402
+from repro_torch.models.common import ParamSpec  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 CPU = {"device": "cpu"}
@@ -307,8 +308,8 @@ class _StubModel:
         self.vocab = vocab
         self.delay = delay
 
-    def init(self, generator, device=None):
-        return {"w": torch.zeros(4, device=device)}
+    # the engine draws the stub's one leaf, zeros, from its specs
+    specs = {"w": ParamSpec((4,), (None,), "zeros", dtype=torch.float32)}
 
     def _step(self, last):
         logits = torch.nn.functional.one_hot(

@@ -9,9 +9,9 @@ one JAX process lowers the reference's cells on 8 host devices.  Reduced
 Llama (2 layers) at seq 64 x batch 8:
 - the bytes a rank holds (params, AdamW state, batch) equal the JAX
   compiled step's ``argument_size_in_bytes`` exactly at (8, 1) and (4, 1);
-- its FLOPs lie within FLOPS_RTOL of ``HloCostModel``'s at (8, 1);
-- at (4, 2) the port does twice the work: the ``model`` axis repeats it
-  (tensor-parallel activations are not ported), a strict xfail.
+- its FLOPs lie within FLOPS_RTOL of ``HloCostModel``'s at (8, 1), and
+  at (4, 2), where the ``model`` axis splits the work (tensor-parallel
+  activations) as it splits the reference's: a rank plans (8, 1)'s FLOPs.
 """
 import json
 import os
@@ -85,7 +85,7 @@ def parity(shape):
     return {"resident": rec["resident_bytes"],
             "flops": rec["roofline"]["flops_per_device"],
             "peak": rec["roofline"]["peak_mem_bytes"],
-            "repeats": rec.get("model_axis_repeats", 1)}
+            "model_axis": rec["mesh_shape"].get("model", 1)}
 
 def cell(cfg, shape, mesh):
     rec = dryrun.plan_cell(cfg, shape, mesh)
@@ -208,21 +208,23 @@ def test_rank_flops_match_jax_hlo_cost(plans, jax_cells):
     assert port == pytest.approx(jax_cells["8x1"]["flops"], rel=FLOPS_RTOL)
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "the port's model axis repeats the work: the models run on whole "
-    "tensors until tensor-parallel activations are ported"))
 def test_model_axis_divides_flops_as_jax(plans, jax_cells):
     port = _value(plans, "parity_4x2")
-    assert port["repeats"] == 2
+    assert port["model_axis"] == 2
     assert port["flops"] == pytest.approx(jax_cells["4x2"]["flops"],
                                           rel=FLOPS_RTOL)
 
 
 def test_model_axis_repeats_the_work(plans):
-    """What the strict xfail above pins: (4, 2) plans twice (8, 1)'s
-    FLOPs a rank, the same as (4, 1)."""
+    """The model axis no longer repeats the work: (4, 2) plans (8, 1)'s
+    FLOPs a rank, half of (4, 1)'s, and its all-reduces of the
+    row-parallel outputs count under their kind."""
     flops = {m: _value(plans, f"parity_{m}")["flops"] for m in PARITY_MESHES}
-    assert flops["4x2"] == flops["4x1"] == 2 * flops["8x1"]
+    assert flops["4x2"] == pytest.approx(flops["8x1"], rel=FLOPS_RTOL)
+    assert flops["4x1"] == 2 * flops["8x1"]
+    assert flops["4x2"] < flops["4x1"]
+    coll = _value(plans, "small_train")["roofline"]["coll_by_kind"]
+    assert coll["all-reduce"] > coll["reduce-scatter"]
 
 
 def test_dryrun_cell_small_mesh(plans):

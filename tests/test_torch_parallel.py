@@ -11,13 +11,20 @@ one device or, where it needs a mesh, in a subprocess on 4 host devices.
   on the two pods the mean is the mean of the dequantized payloads;
 - the sharded train step over (4, 1) and (2, 2) data x model meshes, on
   ``reduced(llama3_2_1b)`` and ``reduced(mixtral_8x22b)`` (its softmax
-  router's load-balance loss taken over the global batch) in fp32, and
-  with 2 microbatches on (2, 2): the metrics of 3 steps at rtol 1e-5
+  router's load-balance loss taken over the global batch; its MoE whole
+  on every model rank, so a doubled residual sum would show) in fp32,
+  with 2 microbatches on (2, 2), on ``reduced(falcon_mamba_7b)`` (the SSM
+  split over the model axis) and ``reduced(hymba_1_5b)`` at 5 q heads
+  and 1 kv head (the attention whole on every rank, its SSM and FFN
+  split) on (2, 2), and the reduced Llama on (1, 4), where its 4 q heads
+  split and its 2 kv heads do not: the metrics of 3 steps at rtol 1e-5
   (grad norm included) and the params after them at rtol 1e-4, atol
   1e-6 against the JAX package's ``make_train_step`` on one device, from
   the same carried-over params (``carry.params_from_numpy``) — the
   tolerances of the single-device step parity in tests/test_torch_train.py
-  (the JAX step jitted here);
+  (the JAX step jitted here); on (2, 2) a rank's q/k/v and FFN
+  activations are half their whole width (the reduced Llama), and so is
+  the SSM's ``xz`` (the reduced Falcon-Mamba);
 - an elastic re-mesh: a (2, 2) run saves at step 2, ranks 2 and 3 leave,
   the survivors re-form a (1, 2) mesh (``ElasticController``) and
   ``restore(shardings=)`` onto it (bit for bit the saved state), and
@@ -35,9 +42,9 @@ one device or, where it needs a mesh, in a subprocess on 4 host devices.
   gpu``): a one-rank NCCL mesh on the card trains 3 steps of
   ``reduced(llama3_2_1b)`` (fp32, and bf16 with 2 microbatches) bit for
   bit as the unsharded step does, and its checkpoint restores through
-  ``restore(shardings=)`` bit for bit; on four cards, NCCL over (4, 1)
-  and (2, 2) meshes trains 3 fp32 steps as the unsharded step on each
-  card does, at the tolerances of the CPU cases above.
+  ``restore(shardings=)`` bit for bit; on four cards, NCCL over (4, 1),
+  (2, 2) and (1, 4) meshes trains 3 fp32 steps as the unsharded step on
+  each card does, at the tolerances of the CPU cases above.
 """
 import json
 import pickle
@@ -163,7 +170,11 @@ def test_compressed_pod_mean_matches_the_reference(collectives):
 # -- the sharded train step ------------------------------------------------------
 CASES = [("llama3_2_1b", (4, 1), 1), ("llama3_2_1b", (2, 2), 1),
          ("mixtral_8x22b", (4, 1), 1), ("mixtral_8x22b", (2, 2), 1),
-         ("llama3_2_1b", (2, 2), 2)]
+         ("llama3_2_1b", (2, 2), 2), ("falcon_mamba_7b", (2, 2), 1),
+         ("hymba_1_5b", (2, 2), 1), ("llama3_2_1b", (1, 4), 1)]
+# Hymba's heads (25 q, 5 kv) do not divide a model axis of 2 or 4: so too
+# here, where the reduced config's 4 would
+OVERRIDES = {"hymba_1_5b": {"num_heads": 5, "num_kv_heads": 1}}
 
 
 def _case_name(arch, shape, mb):
@@ -185,7 +196,7 @@ def sharded_steps(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
     inputs, want = {}, {}
     for arch in sorted({c[0] for c in CASES}):
-        ref, port, params = _models(arch)
+        ref, port, params = _models(arch, **OVERRIDES.get(arch, {}))
         batches = [_batch(port.cfg, b=4, s=16, seed=10 + i)
                    for i in range(4)]
         inputs[arch] = (params, batches)
@@ -220,7 +231,8 @@ def sharded_steps(tmp_path_factory):
         tcfg = TrainConfig(**{STEP_CFG!r})
 
         def start(arch, mesh):
-            model = build_model(reduced(get_config(arch), dtype="float32"))
+            model = build_model(reduced(get_config(arch), dtype="float32",
+                                        **{OVERRIDES!r}.get(arch, {{}})))
             params = params_from_numpy(inputs[arch][0], "cpu")
             state = steps.TrainState(params, adamw_init(params))
             return model, steps.shard_train_state(
@@ -243,12 +255,32 @@ def sharded_steps(tmp_path_factory):
                 np.savez(out / f"{{name}}.npz", *leaves)
                 (out / f"{{name}}.json").write_text(json.dumps(metrics))
 
+        # the widths of a rank's activations: q/k/v heads, the FFN's and
+        # the SSM's in_proj outputs
+        from repro_torch.models import attention, common, ssm
+        widths = {{"heads": set(), "ffn": set(), "xz": set()}}
+        def record(fn, key, width):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                widths[key].add(width(a, out))
+                return out
+            return wrapped
+        attention._project = record(attention._project, "heads",
+                                    lambda a, out: out.shape[-2])
+        common.swiglu = record(common.swiglu, "ffn",
+                               lambda a, out: a[2].shape[-1])
+        ssm.linear = record(ssm.linear, "xz", lambda a, out: out.shape[-1])
         for arch, shape, mb in {CASES!r}:
             mesh = make_mesh(shape, ("data", "model"))
             model, state = start(arch, mesh)
+            for v in widths.values():
+                v.clear()
             state, metrics = run(model, state, mesh, inputs[arch][1][:3], mb)
-            dump(f"{{arch}}-{{shape[0]}}x{{shape[1]}}-mb{{mb}}",
-                 state.params, metrics)
+            name = f"{{arch}}-{{shape[0]}}x{{shape[1]}}-mb{{mb}}"
+            dump(name, state.params, metrics)
+            if rank == 0:
+                (out / f"{{name}}.widths.json").write_text(json.dumps(
+                    {{k: sorted(v) for k, v in widths.items()}}))
 
         # the elastic re-mesh: (2, 2) -> ranks 2, 3 leave -> (1, 2)
         batches = inputs["llama3_2_1b"][1]
@@ -310,6 +342,22 @@ def test_sharded_train_step_matches_the_reference(case, sharded_steps):
     assert len(got_params) == len(want_params)
     for g, w in zip(got_params, want_params):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+
+
+def test_model_axis_halves_the_activations(sharded_steps):
+    """At (2, 2) a rank's q/k/v heads and FFN hidden width are half the
+    reduced Llama's (4 q, 2 kv heads, d_ff 128), and the SSM's xz half
+    the reduced Falcon-Mamba's (2 * 128 channels): the model axis splits
+    the work; at (4, 1) they are whole."""
+    _, out = sharded_steps
+    width = lambda name: json.loads(
+        (out / f"{name}.widths.json").read_text())
+    half = width("llama3_2_1b-2x2-mb1")
+    assert half["heads"] == [1, 2] and half["ffn"] == [64], half
+    assert width("llama3_2_1b-4x1-mb1")["heads"] == [2, 4]
+    assert width("llama3_2_1b-4x1-mb1")["ffn"] == [128]
+    ssm = width("falcon_mamba_7b-2x2-mb1")["xz"]
+    assert max(ssm) == 128, ssm         # w_in's 2 * 64 local channels
 
 
 def test_elastic_remesh_restores_onto_survivors(sharded_steps):
@@ -453,7 +501,7 @@ def test_four_cards_train_as_one_card(tmp_path):
             0, model.cfg.vocab_size, (8, 32))).to(device)
             for k in ("tokens", "labels")}} for _ in range(3)]
         tcfg = TrainConfig(**{STEP_CFG!r})
-        for shape in ((4, 1), (2, 2)):
+        for shape in ((4, 1), (2, 2), (1, 4)):
             mesh = make_mesh(shape, ("data", "model"))
             runs = []
             for sharded in (False, True):

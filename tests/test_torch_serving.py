@@ -26,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import PilotSession  # noqa: E402
 from repro_torch.core.pilot import State  # noqa: E402
+from repro_torch.models.common import ParamSpec  # noqa: E402
 from repro_torch.serving import ServingEngine, splice_row  # noqa: E402
 from repro_torch.serving.engine import (flatten_params,  # noqa: E402
                                         sample_tokens, unflatten_params)
@@ -41,8 +42,8 @@ class _StubModel:
         self.vocab = vocab
         self.delay = delay
 
-    def init(self, generator, device=None):
-        return {"w": torch.zeros(4, device=device)}
+    # the engine draws the stub's one leaf, zeros, from its specs
+    specs = {"w": ParamSpec((4,), (None,), "zeros", dtype=torch.float32)}
 
     def _step(self, last):
         logits = torch.nn.functional.one_hot(
