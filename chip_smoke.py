@@ -45,6 +45,14 @@ kernels' launch counts set to 0 just before and read just after:
   the plain path and an fp32 run on prompts longer than the window;
 - serving InternVL2-2B (vision) at full size and Mixtral-8x22B (MoE) at
   its published widths, 8 of its 56 layers, the same way;
+- a (1, 4) rank's share (before Mixtral's serving): Mixtral's MoE FFN
+  (a prefill wave of 8 x 512, 2 of 8 experts a rank) and DeepSeek-V3's
+  MLA (a prefill of 8 x 512 and a decode step, 32 of 128 heads a rank)
+  at their published widths, one layer, each of the four model ranks run
+  in turn on this card over a one-rank NCCL group (``RankView``); the
+  four partial sums held to the whole layer's output in fp32 (1e-5 of
+  its largest magnitude), reported in bf16, with each rank's device ms
+  against the whole layer's; no kernel (cuBLAS products);
 - serving Whisper-base (enc-dec) at full size: flash_attention non-causal
   in the encoder (1500 frames) and in cross attention (the prompt, then
   each decode token, against the 1500 frames), causal in the decoder's
@@ -94,8 +102,9 @@ non-zero, printing no result, without CUDA or outside a checkout of the
 repository.  It imports nothing of JAX or of the JAX package.
 
 Output: progress lines, then the card's name and power limit, a
-``{"training": {...}}`` line, an ``{"elastic": {...}}`` line, a
-``{"kernels": [...]}`` line, and as the last line
+``{"rank_split": {...}}`` line, a ``{"training": {...}}`` line, an
+``{"elastic": {...}}`` line, a ``{"kernels": [...]}`` line, and as the
+last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -795,6 +804,172 @@ def pilot_mesh_serving_phase(torch, core, cfg, params, kernels: dict,
     assert res["outs"] == unsharded["outs"], (
         "the (1, 1) pilot mesh must serve the unsharded tokens")
     return res
+
+
+# -- a (1, 4) rank's share of MoE and MLA, one rank at a time ---------------
+# Mixtral-8x22B's MoE FFN and DeepSeek-V3's MLA at their published widths,
+# one layer: each of a (1, 4) mesh's model ranks runs on its leaves (2 of 8
+# experts, 32 of 128 heads) in turn, on one card, and the four partial sums
+# must add up to the whole layer's output (fp32 at SPLIT_RTOL of the
+# output's largest magnitude; bf16 reported); the device ms of each rank's
+# share and of the whole layer.  A Mixtral prefill wave of 8 x 512; MLA's
+# prefill of 8 x 512 and one decode step against that prefill's latents.
+SPLIT_RANKS, SPLIT_RTOL = 4, 1e-5
+SPLIT_BATCH, SPLIT_SEQ, SPLIT_MAX_LEN = 8, 512, 1024
+
+
+class RankView:
+    """Model rank `rank` of a (1, `ranks`) data x model mesh, as the models
+    read a mesh (axes, sizes, coordinate), over a one-rank process group:
+    each "all-reduce" over its model axis sums one rank, so the model code
+    computes exactly that rank's partial result on this card."""
+
+    def __init__(self, ranks: int, rank: int):
+        self.mesh_dim_names = ("data", "model")
+        self.shape = (1, ranks)
+        self.coord = [0, rank]
+
+    def size(self, dim=None):
+        return self.shape[dim] if dim is not None else math.prod(self.shape)
+
+    def get_coordinate(self):
+        return self.coord
+
+    def get_local_rank(self, name):
+        return self.coord[self.mesh_dim_names.index(name)]
+
+    def get_group(self, name):
+        return None               # the default (one-rank) process group
+
+
+def rank_leaves(params: dict, specs: dict, block: str, cfg, view,
+                rules) -> dict:
+    """A rank's leaves of a flat dict of one `block`'s params ("moe",
+    "attn"), each by its layout in the models (``transformer.tp_layouts``)."""
+    from repro_torch.models.transformer import local_leaf, tp_layouts
+    lays = tp_layouts({block: specs}, cfg)[block]
+    return {k: local_leaf(v, specs[k], lays[k], view, rules)
+            for k, v in params.items()}
+
+
+def split_sum(torch, name, whole_fn, rank_fn, dtype, timed: bool) -> dict:
+    """Runs `rank_fn(view)` for each model rank of a (1, SPLIT_RANKS) mesh
+    and holds the sum of their outputs to `whole_fn()`; the device ms of
+    each and of the whole where `timed`."""
+    from repro_torch.parallel.sharding import AxisRules, sharding_context
+    rules = AxisRules()
+    views = [RankView(SPLIT_RANKS, m) for m in range(SPLIT_RANKS)]
+
+    def in_rank(view):
+        with sharding_context(view, rules):
+            return rank_fn(view)
+
+    with torch.inference_mode():
+        want = whole_fn().float()
+        got = sum(in_rank(v).float() for v in views)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        row = {"name": name, "dtype": str(dtype).split(".")[-1],
+               "ranks": SPLIT_RANKS, "max_abs_err": err,
+               "max_abs_out": scale, "rel_err": err / max(scale, 1e-30)}
+        if timed:
+            row["whole_ms"] = event_ms(torch, whole_fn, 5)
+            row["rank_ms"] = [event_ms(torch, lambda v=v: in_rank(v), 5)
+                              for v in views]
+    assert math.isfinite(err) and math.isfinite(scale), row
+    if dtype == torch.float32:
+        assert err <= SPLIT_RTOL * scale, (
+            f"{name}: the {SPLIT_RANKS} ranks' partial sums differ from the "
+            f"whole layer's output by {err} (bound {SPLIT_RTOL} x {scale})")
+    log(f"{name} split {SPLIT_RANKS} ways ({row['dtype']}): max |sum of "
+        f"partials - whole| {err:.3e} of max |out| {scale:.3e}"
+        + (f"; device ms whole {row['whole_ms']:.4f}, a rank "
+           + ", ".join(f"{t:.4f}" for t in row["rank_ms"]) if timed else ""))
+    return row
+
+
+def rank_split_phase(torch) -> dict:
+    """Mixtral's MoE FFN and DeepSeek-V3's MLA split over a (1, 4) mesh's
+    model ranks, each rank's share run in turn on this card (`RankView`,
+    a one-rank NCCL group): their sums against the whole layers, in fp32
+    (held) and bf16 (reported), and their device ms.  No kernel: the
+    experts and MLA are cuBLAS products."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import init_params
+    from repro_torch.models.moe import moe_ffn, moe_specs
+    from repro_torch.models.model import _mla_cache_from_prefill
+    from repro_torch.parallel.sharding import AxisRules
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    rules = AxisRules()
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=600))
+    rows = []
+    try:
+        mcfg = get_config("mixtral_8x22b")
+        specs = moe_specs(mcfg)
+        params = init_params(specs, gen(), torch.device("cuda"))
+        x = torch.randn(SPLIT_BATCH, SPLIT_SEQ, mcfg.d_model,
+                        generator=gen(), device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            rows.append(split_sum(
+                torch, "mixtral moe_ffn (1 layer, 8 x 512)",
+                lambda: moe_ffn(params, xd, mcfg)[0],
+                lambda v: moe_ffn(rank_leaves(params, specs, "moe", mcfg, v,
+                                              rules), xd, mcfg)[0],
+                dt, timed=dt == torch.bfloat16))
+        del params, x, xd
+        gc.collect()
+        torch.cuda.empty_cache()
+        dcfg = get_config("deepseek_v3_671b")
+        specs = attn.mla_specs(dcfg)
+        params = init_params(specs, gen(), torch.device("cuda"))
+        x = torch.randn(SPLIT_BATCH, SPLIT_SEQ, dcfg.d_model,
+                        generator=gen(), device="cuda")
+        xt = torch.randn(SPLIT_BATCH, 1, dcfg.d_model, generator=gen(),
+                         device="cuda")
+        pos = torch.arange(SPLIT_SEQ, dtype=torch.int32,
+                           device="cuda").expand(SPLIT_BATCH, SPLIT_SEQ)
+        step_pos = torch.full((SPLIT_BATCH,), SPLIT_SEQ, dtype=torch.int32,
+                              device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            xd, xtd = x.to(dt), xt.to(dt)
+            prefill = lambda p: attn.mla_forward(
+                p, xd, cfg=dcfg, positions=pos, return_cache=True)
+            rows.append(split_sum(
+                torch, "deepseek-v3 mla_forward (1 layer, 8 x 512)",
+                lambda: prefill(params)[0],
+                lambda v: prefill(rank_leaves(params, specs, "attn", dcfg,
+                                              v, rules))[0],
+                dt, timed=dt == torch.bfloat16))
+            with torch.inference_mode():
+                _, (c_kv, k_rope) = prefill(params)
+                cache = {k: t[0] for k, t in _mla_cache_from_prefill(
+                    (c_kv[None], k_rope[None]), pos,
+                    SPLIT_MAX_LEN).items()}
+            fresh = lambda: {k: t.clone() for k, t in cache.items()}
+            rows.append(split_sum(
+                torch, "deepseek-v3 mla_decode (1 layer, 8 rows, 512 "
+                "cached)",
+                lambda: attn.mla_decode(params, xtd, fresh(), cfg=dcfg,
+                                        positions=step_pos)[0],
+                lambda v: attn.mla_decode(
+                    rank_leaves(params, specs, "attn", dcfg, v, rules), xtd,
+                    fresh(),
+                    cfg=dcfg, positions=step_pos)[0],
+                dt, timed=dt == torch.bfloat16))
+        del params, x, xt, cache
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"rows": rows}
 
 
 def hymba_inputs(torch, cfg, b: int, s: int, seed: int):
@@ -2857,7 +3032,11 @@ def main() -> int:
         ("llama decode, (1, 4) rank", 8, 1024, 8, 2, 64, bf16, 0,
          {"fill": 1.0}),
         ("deepseek-67b decode, (1, 4) rank", 8, 2048, 16, 2, 128, bf16, 0,
-         {"fill": 0.5})]
+         {"fill": 0.5}),
+        # Mixtral-8x22B's 12 of 48 q and 2 of 8 kv heads, its rolling
+        # 4096-slot window, rows past it
+        ("mixtral decode, (1, 4) rank", 8, 4096, 12, 2, 128, bf16, 4096,
+         {"first": 4608})]
     attn_rows = [check_attention(torch, decode_attention_op,
                                  decode_attention_ref, name, b, sc, nq, nkv,
                                  h, dt, window=w, **kind)
@@ -2879,7 +3058,8 @@ def main() -> int:
         # a rank's heads over a (1, 4) pilot mesh (see the decode shapes)
         ("llama wave, (1, 4) rank", 8, 128, 8, 2, 64, bf16, 0),
         ("deepseek-67b wave, (1, 4) rank", 8, 512, 16, 2, 128, bf16, 0),
-        ("deepseek-67b refill, (1, 4) rank", 1, 1024, 16, 2, 128, bf16, 0)]
+        ("deepseek-67b refill, (1, 4) rank", 1, 1024, 16, 2, 128, bf16, 0),
+        ("mixtral refill, (1, 4) rank", 1, 4608, 12, 2, 128, bf16, 4096)]
     flash_rows = [check_flash(torch, flash_attention_op, *shape)
                   for shape in flash_shapes]
     # Whisper's non-causal shapes (8/8 heads of 64, 1500 frames): the
@@ -3002,6 +3182,9 @@ def main() -> int:
     del vparams
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 8b. a (1, 4) rank's share of MoE and MLA at published widths ------
+    split = rank_split_phase(torch)
 
     # -- 9. the serving path: Mixtral-8x22B at published widths -------------
     full = get_config("mixtral_8x22b")
@@ -3148,6 +3331,7 @@ def main() -> int:
         assert sharded_launches[name] == 0, (name, sharded_launches)
         assert resilient["launches"][name] == 0, (name, resilient)
     log(card)
+    log(json.dumps({"rank_split": split}))
     log(json.dumps({"training": training}))
     log(json.dumps({"elastic": {"serving": eserve["row"],
                                 "kmeans": ekmeans,

@@ -473,8 +473,13 @@ class PilotCompute:
             self.tier_manager.close()   # stop the stager threads
         # a released pilot keeps no warm state: its cached executables and
         # what they hold (a serving replica's weights on the card) go
-        # with it, even while something still refers to the pilot
+        # with it, even while something still refers to the pilot; so does
+        # its mesh, which keeps its process groups alive (a gloo group that
+        # outlives destroy_process_group still runs its workers when the
+        # interpreter exits, and one dropping its last work's tensors then
+        # aborts the process)
         self._jit_cache.clear()
+        self.mesh = None
         self.state = State.CANCELED if self.state != State.DONE else self.state
 
     def wait_idle(self, timeout: float = 60.0):

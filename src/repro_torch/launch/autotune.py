@@ -10,11 +10,13 @@ parallelism), and the tuner plans each with ``dryrun.run_cell`` (fake
 tensors over a fake group; run it in its own process), never touching a
 card.  Winners are written to ``build/autotune/<arch>__<shape>__<mesh>.json``.
 
-The models run tensor-parallel over the ``model`` axis, but a variant
-that moves only an expert or sequence layout over it (EP-2D, sequence
-parallelism) shows no gain: the MoE FFN runs whole on every ``model``
-rank (expert parallelism is not ported) and no activation follows a
-sequence rule.  Each summary says so in its ``note``.
+The models run tensor-parallel over the ``model`` axis and
+expert-parallel where the rules put ``expert`` on it; an EP-2D variant
+also holds each rank's experts over the data axis and exchanges the
+dispatch buffer by an all-to-all (``models/moe.py``).  A variant that
+moves only a sequence layout (sequence parallelism) shows no gain: no
+activation follows a sequence rule.  Each summary says so in its
+``note``.
 """
 import argparse
 import json
@@ -26,9 +28,9 @@ from repro_torch.launch.dryrun import mesh_name, run_cell
 from repro_torch.parallel.sharding import AxisRules
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "autotune"
-NOTE = ("expert and sequence layouts over the model axis show no gain: "
-        "the MoE FFN runs whole on every model rank (no expert "
-        "parallelism) and no activation follows a sequence rule")
+NOTE = ("a sequence layout over the model axis shows no gain: no "
+        "activation follows a sequence rule (sequence parallelism is not "
+        "ported)")
 
 EP2D = (("expert", ("model", "data")), ("act_expert2", ("model", "data")),
         ("expert_embed", None), ("moe_group2", None))

@@ -32,9 +32,12 @@ The record gives the bytes a rank holds at rest (``resident_bytes``)
 and its peak (``peak_mem_bytes``, which decides ``fits_hbm``).
 
 Over a ``model`` axis the step runs tensor-parallel
-(``models/transformer.py``): a rank's FLOPs fall with the axis, and the
-all-reduces of the row-parallel outputs count under "all-reduce"
-(``roofline.op_cost``).  Records are written to
+(``models/transformer.py``; MoE expert-parallel, MLA over its heads): a
+rank's FLOPs fall with the axis, and the all-reduces of the row-parallel
+outputs count under "all-reduce" (``roofline.op_cost``).  Under rules
+that also put the experts on a batch axis (EP-2D) a training cell holds
+a rank's experts there instead of gathering them, and the dispatch
+buffer's exchange counts under "all-to-all".  Records are written to
 ``build/dryrun/<arch>__<shape>__<mesh>.json``.  Besides the reference's
 production meshes (``--mesh pod|multipod|both``), ``--mesh`` takes any
 mesh (``DxM`` or ``PxDxM``) and ``--batch``/``--seq`` resize the shape:

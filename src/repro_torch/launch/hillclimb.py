@@ -10,10 +10,11 @@ variants (explicit, named hypotheses), each planned by
 process).  A "_regroup" patch is ignored, as in the reference.  Results
 land in ``build/perf/<cell>__<variant>.json``.
 
-A variant that moves only an expert or sequence layout over the
-``model`` axis (the EP-2D layouts, sequence over model) shows no gain:
-the MoE FFN runs whole on every ``model`` rank and no activation
-follows a sequence rule.  Each record says so in its ``note``.
+The EP-2D variants hold each rank's experts over the data axis too and
+exchange the dispatch buffer by an all-to-all (``models/moe.py``); a
+variant that moves only a sequence layout over the ``model`` axis shows
+no gain: no activation follows a sequence rule.  Each record says so in
+its ``note``.
 """
 import argparse
 import json

@@ -157,10 +157,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-# NCCL kernel name fragments -> the collective a traced step ran
+# NCCL kernel name fragments -> the collective a traced step ran (NCCL
+# runs an all-to-all as grouped sends and receives)
 TRACE_PARTS = (("AllGather", "all-gather"),
                ("ReduceScatter", "reduce-scatter"),
-               ("AllReduce", "all-reduce"), ("nccl", "other collective"))
+               ("AllReduce", "all-reduce"), ("SendRecv", "all-to-all"),
+               ("nccl", "other collective"))
 
 
 def trace_split(prof) -> dict:

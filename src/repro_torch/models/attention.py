@@ -39,7 +39,11 @@ and the kv heads do not, ``wk``/``wv`` are whole on every rank and each
 rank projects only the kv heads its q heads read (`kv_select`); their
 gradients on each rank are partial sums, which ``copy_to_model`` on the
 weights adds up.  Where the q heads do not divide (Hymba, Whisper over 16)
-the block runs whole on every rank.  MLA runs whole on every rank.
+the block runs whole on every rank.  MLA splits its heads the same way
+(`mla_split`): column-parallel ``wq_b``/``wk_b``/``wv_b``, row-parallel
+``wo``, on latents whole on every rank (``wq_a``, ``wkv_a`` and their
+norms are whole); its decode cache, the latent, is whole on every rank
+too (the reference shards its ``kv_seq`` over ``model`` instead).
 
 Training (``train=True``, passed down from ``Model.train_forward``) never
 reaches a kernel: the flash kernel is forward-only (its op refuses inputs
@@ -316,12 +320,30 @@ def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def _mla_qkv_latent(params, x, *, cfg: ModelConfig, positions):
+def mla_split(params, cfg: ModelConfig) -> bool:
+    """Whether an MLA block's heads are the rank's shard over the
+    ``model`` axis (its ``wq_b`` holds fewer than the config's heads)."""
+    nq_local = params["wq_b"].shape[-2]
+    if nq_local == cfg.num_heads:
+        return False
+    mg = model_group()
+    if mg is None or nq_local * mg.size != cfg.num_heads:
+        raise ValueError(f"{nq_local} of {cfg.num_heads} MLA heads outside "
+                         f"a sharding context over the model axis")
+    return True
+
+
+def _mla_qkv_latent(params, x, *, cfg: ModelConfig, positions,
+                    split: bool = False):
     """Shared projection path: returns per-head q (nope, rope), the
-    latent c_kv and the shared k_rope (post-RoPE)."""
+    latent c_kv and the shared k_rope (post-RoPE).  With `split` the
+    heads are the rank's, and the latents, whole on every rank, feed
+    only them: ``q_lat``, c_kv and k_rope go through ``copy_to_model``
+    (after their norms, whose weights' gradients are then whole)."""
     m = cfg.mla
-    q_lat = rms_norm(linear(x, params["wq_a"]), params["q_norm"],
-                     cfg.norm_eps)
+    enter = copy_to_model if split else (lambda t: t)
+    q_lat = enter(rms_norm(linear(x, params["wq_a"]), params["q_norm"],
+                           cfg.norm_eps))
     q = _project(q_lat, params["wq_b"])
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
@@ -331,7 +353,7 @@ def _mla_qkv_latent(params, x, *, cfg: ModelConfig, positions):
                     cfg.norm_eps)
     k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], positions,
                         cfg.rope_theta)
-    return q_nope, q_rope, c_kv, k_rope[..., 0, :]
+    return q_nope, q_rope, enter(c_kv), enter(k_rope[..., 0, :])
 
 
 def mla_forward(params, x, *, cfg: ModelConfig, positions,
@@ -341,10 +363,12 @@ def mla_forward(params, x, *, cfg: ModelConfig, positions,
     attention with the scale of the full QK head width, (qk_nope +
     qk_rope)**-0.5; with `train`, each chunk is checkpointed.  With
     `return_cache`, returns (y, (c_kv, k_rope)), the decode cache's
-    entries from the same projection."""
+    entries from the same projection.  On the rank's heads
+    (`mla_split`), its ``wo``'s partial sums added over the ranks."""
     m = cfg.mla
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(params, x, cfg=cfg,
-                                                   positions=positions)
+    split = mla_split(params, cfg)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(
+        params, x, cfg=cfg, positions=positions, split=split)
     k_nope = _project(c_kv, params["wk_b"])
     v = _project(c_kv, params["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -354,10 +378,14 @@ def mla_forward(params, x, *, cfg: ModelConfig, positions,
                           kv_positions=positions, causal=True, window=0,
                           chunk=chunk, remat=train)      # g=1 (nkv == nq)
     y = _out_proj(out[..., 0, :], params["wo"])
+    if split:
+        y = reduce_from_model(y)
     return (y, (c_kv, k_rope)) if return_cache else y
 
 
 def init_mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    """The latent cache's (shape, logical axes): the same on every
+    ``model`` rank (the heads' split leaves it whole)."""
     m = cfg.mla
     return {
         "c_kv": ((batch, max_len, m.kv_lora_rank), ("batch", "kv_seq", "mla_rank")),
@@ -370,11 +398,13 @@ def mla_decode(params, x, cache, *, cfg: ModelConfig, positions):
     """Absorbed-matmul MLA decode against the compressed latent cache.
     x: (B,1,d); positions: (B,) int32; cache: this layer's {"c_kv",
     "k_rope", "pos"}, the new token written in place at slot
-    pos % max_len.  Returns (y, cache)."""
+    pos % max_len.  Returns (y, cache).  The absorbed products run on
+    the rank's heads (`mla_split`); the cache is whole on every rank."""
     m = cfg.mla
     b = x.shape[0]
+    split = mla_split(params, cfg)
     q_nope, q_rope, c_new, r_new = _mla_qkv_latent(
-        params, x, cfg=cfg, positions=positions[:, None])
+        params, x, cfg=cfg, positions=positions[:, None], split=split)
     c_cache, r_cache, pos_cache = cache["c_kv"], cache["k_rope"], cache["pos"]
     idx = (torch.arange(b, device=x.device),
            (positions % c_cache.shape[1]).long())
@@ -395,7 +425,8 @@ def mla_decode(params, x, cache, *, cfg: ModelConfig, positions):
                            c_cache)
     out = torch.einsum("bshr,rhe->bshe", out_lat,
                        params["wv_b"].to(out_lat.dtype))
-    return _out_proj(out, params["wo"]), cache
+    y = _out_proj(out, params["wo"])
+    return (reduce_from_model(y) if split else y), cache
 
 
 # ---------------------------------------------------------------------------

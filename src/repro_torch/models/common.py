@@ -14,7 +14,7 @@ models run on each rank's ``model`` shard of the params, Megatron-style
 block whose weights are split there (the local width below the config's)
 enters through `copy_to_model` and leaves through `reduce_from_model`,
 as `dense_ffn` with ``split``; a block whose weights are whole on every
-rank (heads that do not divide the axis, MoE, MLA) computes the whole
+rank (heads that do not divide the axis) computes the whole
 output and issues no collective.  ``cross_entropy_loss`` is the training
 loss: an fp32 log-sum-exp with the optional z-loss and mask, over the
 rank's slice of the vocabulary where the logits are vocab-parallel.
@@ -22,6 +22,7 @@ rank's slice of the vocabulary where the logits are vocab-parallel.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -101,48 +102,122 @@ def stack_specs(tree, num: int, logical: str = "layers"):
 
 
 DRAW_ELEMENTS = 1 << 28       # fp32 elements per draw of a random leaf (1 GiB)
+_MASK64 = (1 << 64) - 1
 
 
-def _init_leaf(spec: ParamSpec, generator: torch.Generator,
-               device: torch.device) -> torch.Tensor:
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-    if spec.init == "mamba_a":
-        # A_log: log of 1..N broadcast over d_inner (shape (..., d, N))
-        n = spec.shape[-1]
-        a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
-        return torch.log(a.expand(spec.shape).contiguous()).to(spec.dtype)
-    if spec.init == "mamba_dt":
-        # dt bias: inverse softplus of uniform in [1e-3, 1e-1]
-        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
-                       device=device) * (1e-1 - 1e-3) + 1e-3
-        return (u + torch.log(-torch.expm1(-u))).to(spec.dtype)
-    if spec.init not in ("normal", "scaled"):
-        raise ValueError(f"unknown init {spec.init!r}")
+def leaf_seed(generator: torch.Generator) -> int:
+    """One draw from `generator`: the seed a leaf's blocks are drawn from
+    (`draw_leaf`)."""
+    return int(torch.randint(0, 1 << 62, (1,), generator=generator,
+                             device=generator.device).item())
+
+
+def _block_seed(seed: int, block: int) -> int:
+    """The seed of block `block` of a leaf seeded `seed` (splitmix64)."""
+    z = (seed + (block + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+def block_dims(spec: ParamSpec) -> int:
+    """How many leading dims of a leaf index its blocks, each drawn from a
+    generator of its own: the layer dim of a stacked leaf and the expert
+    dim after it (an expert's matrix of one layer is one block)."""
+    n = 1 if spec.logical[:1] in (("layers",), ("stack",)) else 0
+    if spec.logical[n:n + 1] == ("expert",) and len(spec.shape) > n + 1:
+        n += 1
+    return n
+
+
+def _draw_block(spec: ParamSpec, shape, seed: int,
+                device: torch.device) -> torch.Tensor:
+    """One block of a random leaf: drawn in fp32 in slices of at most
+    DRAW_ELEMENTS, each scaled (or transformed) and cast into the block
+    (a whole-leaf fp32 draw of one stacked expert leaf at Mixtral's widths
+    would take twice the leaf's bf16 bytes twice)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = torch.empty(shape, dtype=spec.dtype, device=device)
+    flat = out.view(-1)
     scale = spec.scale
     if spec.init == "scaled":  # 1/sqrt(fan_in), fan_in as the JAX package
         fan_in = (spec.shape[0] if len(spec.shape) >= 2
                   else max(spec.shape[-1], 1))
         scale = 1.0 / np.sqrt(max(fan_in, 1))     # 0: a stack of no layers
-    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
-    flat = out.view(-1)
-    # drawn in fp32 in slices of at most DRAW_ELEMENTS, each scaled and
-    # cast into the leaf: a whole-leaf fp32 draw of one stacked expert
-    # leaf at Mixtral's widths would take twice the leaf's bf16 bytes twice
     for a in range(0, flat.numel(), DRAW_ELEMENTS):
         n = min(DRAW_ELEMENTS, flat.numel() - a)
-        x = torch.randn(n, generator=generator, dtype=torch.float32,
-                        device=device)
-        flat[a:a + n] = x.mul_(scale)
+        if spec.init == "mamba_dt":
+            # dt bias: inverse softplus of uniform in [1e-3, 1e-1]
+            u = torch.rand(n, generator=gen, dtype=torch.float32,
+                           device=device) * (1e-1 - 1e-3) + 1e-3
+            flat[a:a + n] = u + torch.log(-torch.expm1(-u))
+        else:
+            x = torch.randn(n, generator=gen, dtype=torch.float32,
+                            device=device)
+            flat[a:a + n] = x.mul_(scale)
     return out
+
+
+def draw_leaf(spec: ParamSpec, seed: int, device: torch.device,
+              index=None, cut=None) -> torch.Tensor:
+    """The leaf of `spec` drawn from `seed`, or only its part `index` (one
+    slice a dim, as ``parallel.sharding.local_index`` cuts a rank's
+    shard), with `cut` applied to each block after that (the SSM's paired
+    columns).  A random leaf is drawn block by block (`block_dims`), each
+    block from its own generator seeded from `seed` and its index, so a
+    rank draws only the blocks its part holds and gets the values the
+    whole draw has there."""
+    shape = tuple(spec.shape)
+    index = tuple(slice(*sl.indices(n)[:2]) for sl, n in zip(
+        index or (slice(None),) * len(shape), shape))
+    cut = cut or (lambda t: t)
+    if spec.init in ("zeros", "ones", "mamba_a"):
+        local = tuple(sl.stop - sl.start for sl in index)
+        if spec.init == "mamba_a":
+            # A_log: log of 1..N broadcast over d_inner (shape (..., d, N))
+            a = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                             device=device)[index[-1]]
+            out = torch.log(a.expand(local).contiguous()).to(spec.dtype)
+        else:
+            fill = torch.zeros if spec.init == "zeros" else torch.ones
+            out = fill(local, dtype=spec.dtype, device=device)
+        return cut(out)
+    if spec.init not in ("normal", "scaled", "mamba_dt"):
+        raise ValueError(f"unknown init {spec.init!r}")
+    nb = block_dims(spec)
+    strides = [int(np.prod(shape[d + 1:nb])) for d in range(nb)]
+    out = None
+    blocks = itertools.product(*(range(sl.start, sl.stop)
+                                 for sl in index[:nb]))
+    for i, blk in enumerate(blocks):
+        b = sum(j * st for j, st in zip(blk, strides))
+        piece = cut(_draw_block(spec, shape[nb:], _block_seed(seed, b),
+                                device)[index[nb:]])
+        if out is None:
+            lead = tuple(sl.stop - sl.start for sl in index[:nb])
+            if not lead:
+                return piece
+            out = torch.empty(lead + tuple(piece.shape), dtype=piece.dtype,
+                              device=device)
+        out.view((-1,) + tuple(piece.shape))[i] = piece
+        del piece
+    if out is None:                       # a stack of no layers
+        return cut(torch.empty(tuple(sl.stop - sl.start for sl in index),
+                               dtype=spec.dtype, device=device))
+    return out
+
+
+def _init_leaf(spec: ParamSpec, generator: torch.Generator,
+               device: torch.device) -> torch.Tensor:
+    return draw_leaf(spec, leaf_seed(generator), device)
 
 
 def init_params(spec_tree, generator: torch.Generator,
                 device: torch.device) -> Dict[str, Any]:
-    """Materialize a ParamSpec tree on `device`, drawing from `generator`
-    (which must live on `device`) leaf by leaf in sorted-key order."""
+    """Materialize a ParamSpec tree on `device`: each leaf, in sorted-key
+    order, from a seed drawn from `generator` (which must live on
+    `device`), block by block (`draw_leaf`)."""
     return tree_map(lambda s: _init_leaf(s, generator, device), spec_tree)
 
 

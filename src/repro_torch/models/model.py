@@ -265,7 +265,8 @@ def build_model(cfg: ModelConfig) -> Model:
         """The cache's tree of (shape, logical axes); with `local`, its kv
         heads and SSM channels are the rank's under the current
         sharding_context (``attention.local_heads``,
-        ``ssm.local_inner``)."""
+        ``ssm.local_inner``); MLA's latent cache is whole on every rank
+        (its heads split, the latent does not)."""
         if cfg.parallel_ssm:
             return tuple(
                 {"kv": attn.init_gqa_cache_spec(cfg, batch, max_len,

@@ -8,13 +8,26 @@ plus shared experts, sigmoid router with the aux-free bias, which moves
 the selection only, and ``router_scale``).  What differs from the JAX
 package:
 
-- the sharding constraints are gone: the MoE FFN runs whole on every
-  ``model`` rank (the sharded step gathers its params whole, the
-  serving engine keeps them whole; expert parallelism over the axis is
-  not ported), so its output is whole and adds no collective; the one
-  batch-wide quantity the loss is not linear in, the Switch aux loss's
-  dispatch fractions, goes through ``parallel.sharding.batch_mean`` (the
-  global batch's mean under a sharded step);
+- the sharding constraints become the collectives they imply
+  (``parallel.sharding``): under a sharding_context whose rules put
+  ``expert`` on the ``model`` axis, a rank holds E/M experts and
+  dispatches only to them; where the axis does not divide the experts,
+  the rules put ``expert_mlp`` on it and a rank runs every expert on its
+  columns of the expert FFN (`expert_plan`).  The routing stays whole
+  on every ``model`` rank (the tokens are whole there, and top-k needs
+  every expert's score): the ``router`` leaf and ``router_bias`` are
+  whole.  The dispatch input and the combine weights enter through
+  ``copy_to_model`` (each rank sees only its experts' part of their
+  gradient; the router's own input does not, its gradient is whole on
+  every rank), and the partial sums of the routed and the shared
+  experts are all-reduced once.  Where the rules also put ``expert`` on
+  a batch axis (EP-2D: ``("model", "data")``), the data ranks hold
+  different tokens and different experts: the dispatch buffer goes to
+  the experts' holders by ``all_to_all`` over that axis and the expert
+  outputs come back the same way.  The one batch-wide quantity the
+  loss is not linear in, the Switch aux loss's dispatch fractions, goes
+  through ``parallel.sharding.batch_mean`` (the global batch's mean
+  under a sharded step);
 - top-k takes the experts in a stable descending sort, so that equal
   scores keep the lower expert first, as ``jax.lax.top_k`` does
   (``torch.topk`` promises no order among ties);
@@ -28,6 +41,8 @@ JAX package computes them with ``jnp.einsum`` outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -35,7 +50,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.common import ParamSpec, linear, swiglu
-from repro_torch.parallel.sharding import batch_mean
+from repro_torch.parallel.sharding import (MODEL_AXIS, all_to_all,
+                                           axis_group, axis_sizes,
+                                           batch_mean, copy_to_model,
+                                           current_context, model_group,
+                                           reduce_from_model, resolve_pspec)
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -118,71 +137,185 @@ def _positions_in_expert(flat: torch.Tensor) -> torch.Tensor:
     return pos.scatter_(1, order, (iota - run_start).to(flat.dtype))
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertPlan:
+    """The experts a rank dispatches to: chunks ``first + j * stride`` for
+    j < `count` of `n_local` experts each, in that order; `group`, where
+    they are held along a batch axis (its rank j holds chunk j), or None;
+    `over_model`, whether the model axis splits them."""
+    n_local: int
+    first: int
+    stride: int
+    count: int
+    group: object
+    over_model: bool
+
+    @property
+    def n(self) -> int:
+        return self.count * self.n_local
+
+    def local(self, ids: torch.Tensor) -> torch.Tensor:
+        """Each expert id's slot among the rank's (-1 for another's),
+        computed on the ids' device."""
+        rel = torch.div(ids, self.n_local, rounding_mode="floor") - self.first
+        j = torch.div(rel, self.stride, rounding_mode="floor")
+        mine = (rel >= 0) & (rel % self.stride == 0) & (j < self.count)
+        return torch.where(mine, j * self.n_local + ids % self.n_local, -1)
+
+
+def expert_plan(n_local: int, num_experts: int):
+    """The `ExpertPlan` of a rank holding `n_local` of `num_experts`
+    experts under the current sharding context, or None where it holds
+    them all.
+
+    The rules' axes for ``expert`` deal the experts in chunks of
+    `n_local`, in the mesh's order of those axes
+    (``sharding.mesh_ordered``): a rank holds chunk sum(coordinate *
+    stride).  Where they
+    are only ``model``, a rank dispatches to its own chunk.  Where they
+    hold a batch axis too (EP-2D), the ranks along that axis hold
+    different tokens: a rank dispatches to the chunks of every rank of
+    that axis that shares its other coordinates, in the axis' rank order
+    (the layout `all_to_all` over the axis' group deals out).  A rank
+    holding only its ``model`` shard of such a leaf (serving, where the
+    batch axes repeat the batch) dispatches as under ``model`` alone."""
+    if n_local == num_experts:
+        return None
+    ctx = current_context()
+    if ctx is None or ctx.mesh is None:
+        raise ValueError(f"{n_local} of {num_experts} experts outside a "
+                         f"sharding context")
+    mesh = ctx.mesh
+    sizes = axis_sizes(mesh)
+    names = list(mesh.mesh_dim_names)
+    spec = resolve_pspec(("expert",), (num_experts,), mesh, ctx.rules)
+    entry = spec[0] if spec else None
+    axes = sorted((entry,) if isinstance(entry, str) else entry or (),
+                  key=names.index)
+    if math.prod(sizes[a] for a in axes) != num_experts // n_local:
+        axes = [a for a in axes if a == MODEL_AXIS]
+    if math.prod(sizes[a] for a in axes) != num_experts // n_local:
+        raise ValueError(f"{n_local} of {num_experts} experts is no shard "
+                         f"of the rules' {spec} on the mesh {sizes}")
+    exchange = [a for a in axes if a != MODEL_AXIS]
+    if len(exchange) > 1:
+        raise NotImplementedError(f"experts over the batch axes {exchange}:"
+                                  f" one at most")
+    coord = dict(zip(names, mesh.get_coordinate()))
+    first, strides = 0, {}
+    for a in reversed(axes):
+        strides[a] = math.prod(sizes[b] for b in axes[axes.index(a) + 1:])
+        if a not in exchange:
+            first += coord[a] * strides[a]
+    if not exchange:
+        return ExpertPlan(n_local, first, 1, 1, None, MODEL_AXIS in axes)
+    return ExpertPlan(n_local, first, strides[exchange[0]],
+                      sizes[exchange[0]], axis_group(exchange[0]),
+                      MODEL_AXIS in axes)
+
+
 def moe_ffn(params, x: torch.Tensor,
             cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B,S,D), aux_loss ())."""
+    """x: (B, S, D) -> (out (B,S,D), aux_loss ()).  On the rank's local
+    leaves under a sharding context (module doc, `expert_plan`)."""
     e = cfg.moe
     b0, s0, d = x.shape
     k, ne = e.top_k, e.num_experts
 
     w, idx, aux = _route(params, x, e)
 
+    plan = expert_plan(params["w_gate"].shape[-3], ne)
+    group = None if plan is None else plan.group
+    mg = model_group()
+    routed_split = mg is not None and (
+        (plan is not None and plan.over_model)
+        or params["w_gate"].shape[-1] < e.expert_d_ff)
+    shared_split = (mg is not None and e.num_shared_experts > 0 and
+                    params["shared_gate"].shape[-1]
+                    < e.num_shared_experts * e.expert_d_ff)
+    x_split = copy_to_model(x) if routed_split or shared_split else x
+    if routed_split:
+        w = copy_to_model(w)
+
     # decode-time regrouping: with s*k << num_experts the per-row capacity
     # buffer is mostly empty, so rows merge into fewer, fuller groups
     # (about 2*ne dispatched slots per group) before capacity assignment
     b, s = b0, s0
+    xr = x_split if routed_split else x
     if s0 * k < ne and b0 > 1:
         tpg = max(1, 2 * ne // k)               # tokens per group
         g = max(1, (b0 * s0) // tpg)
         while (b0 * s0) % g:
             g -= 1
         b, s = g, b0 * s0 // g
-        x = x.reshape(b, s, d)
+        xr = xr.reshape(b, s, d)
         w = w.reshape(b, s, k)
         idx = idx.reshape(b, s, k)
     cap = max(1, int(e.capacity_factor * s * k / ne))
 
-    # group-local position in expert; tokens past capacity go to the
-    # overflow slot ne*cap, which is dropped
+    # group-local position in expert; tokens past capacity, and tokens of
+    # experts the rank does not dispatch to, go to the overflow slot
+    # n*cap, which is dropped (n: the experts it dispatches to)
     flat = idx.reshape(b, s * k)
     pos = _positions_in_expert(flat)
     keep = pos < cap
-    dst = torch.where(keep, flat * cap + pos, ne * cap)
-    wr = w.reshape(b, s * k).to(x.dtype)
+    n = ne
+    if plan is not None:
+        n = plan.n
+        flat = plan.local(flat)
+        keep = keep & (flat >= 0)
+    dst = torch.where(keep, flat * cap + pos, n * cap)
+    wr = w.reshape(b, s * k).to(xr.dtype)
 
-    # scatter each token's k copies into (B, E*C+1, D); a kept slot gets
+    # scatter each token's k copies into (B, n*C+1, D); a kept slot gets
     # exactly one token, so the sum is exact
-    xe = x.repeat_interleave(k, dim=1)                     # (B, S*K, D)
-    buf = x.new_zeros((b, ne * cap + 1, d))
+    xe = xr.repeat_interleave(k, dim=1)                    # (B, S*K, D)
+    buf = xr.new_zeros((b, n * cap + 1, d))
     buf.scatter_add_(1, dst[..., None].expand(-1, -1, d), xe)
-    # experts lead for the batched products: (E, B*C, D)
-    buf = buf[:, :-1].reshape(b, ne, cap, d).transpose(0, 1).reshape(
-        ne, b * cap, d)
+    # experts lead for the batched products: (n, B*C, D)
+    buf = buf[:, :-1].reshape(b, n, cap, d).transpose(0, 1).reshape(
+        n, b * cap, d)
+    if group is not None:
+        # to the experts' holders: (G, n/G, B*C, D) -> (n/G, G*B*C, D)
+        gs = group.size
+        buf = all_to_all(buf, group.group).reshape(
+            gs, n // gs, b * cap, d).transpose(0, 1).reshape(
+            n // gs, gs * b * cap, d)
 
     # expert computation (SwiGLU), one batched product per matrix
-    gt = torch.bmm(buf, params["w_gate"].to(x.dtype))
-    up = torch.bmm(buf, params["w_up"].to(x.dtype))
+    gt = torch.bmm(buf, params["w_gate"].to(xr.dtype))
+    up = torch.bmm(buf, params["w_up"].to(xr.dtype))
     # silu in place on the fp32 copy: at a Mixtral prefill wave gt is 3 GB.
     # An fp32 gt is not copied, and stays as it is: remat="dots" keeps
     # the product itself for the backward pass
     g32 = gt.float()
-    h = F.silu(g32, inplace=g32 is not gt).to(x.dtype) * up
-    y = torch.bmm(h, params["w_down"].to(x.dtype))         # (E, B*C, D)
-    y = y.reshape(ne, b, cap, d).transpose(0, 1).reshape(b, ne * cap, d)
+    h = F.silu(g32, inplace=g32 is not gt).to(xr.dtype) * up
+    y = torch.bmm(h, params["w_down"].to(xr.dtype))        # (n', B*C, D)
+    if group is not None:
+        gs = group.size
+        y = all_to_all(y.reshape(n // gs, gs, b * cap, d).transpose(0, 1)
+                       .reshape(n, b * cap, d), group.group)
+    y = y.reshape(n, b, cap, d).transpose(0, 1).reshape(b, n * cap, d)
 
     # gather back and combine with the router weights
-    dstc = torch.clamp(dst, max=ne * cap - 1)
+    dstc = torch.clamp(dst, max=n * cap - 1)
     gathered = torch.gather(y, 1, dstc[..., None].expand(-1, -1, d))
     gathered = torch.where(keep[..., None], gathered, 0)
     combined = (gathered * wr[..., None]).reshape(b, s, k, d).sum(dim=2)
-    combined = combined.reshape(b0, s0, d)
-    x = x.reshape(b0, s0, d)
-
+    parts = [(combined.reshape(b0, s0, d), routed_split)]
     if e.num_shared_experts:
-        combined = combined + swiglu(x, params["shared_gate"],
-                                     params["shared_up"],
-                                     params["shared_down"])
-    return combined, aux
+        parts.append((swiglu(x_split if shared_split else x,
+                             params["shared_gate"], params["shared_up"],
+                             params["shared_down"]), shared_split))
+    # the whole outputs in order, then the partial ones summed over the
+    # model ranks in one all-reduce
+    whole = [t for t, split in parts if not split]
+    partial = [t for t, split in parts if split]
+    out = sum(whole[1:], whole[0]) if whole else None
+    if partial:
+        summed = reduce_from_model(sum(partial[1:], partial[0]))
+        out = summed if out is None else out + summed
+    return out, aux
 
 
 def router_load(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -31,8 +31,11 @@ blocks whose weights are split add their row-parallel outputs over the
 ranks before the residual (``models/common.py``), the embedding is
 vocab-parallel (each rank looks up its rows and the ranks' lookups are
 summed) and so are the logits (`lm_logits` gives the rank's slice of
-the vocabulary).  A block whole on every rank (MoE, MLA, heads that do
-not divide the axis) gives the whole output and adds nothing.
+the vocabulary).  A block whole on every rank (heads that do not divide
+the axis) gives the whole output and adds nothing.  MLA splits its heads
+(``attention.mla_split``) and MoE its experts, or each expert's FFN
+columns where the experts do not divide the axis
+(``moe.expert_plan``); MoE's router is whole on every rank.
 """
 from __future__ import annotations
 
@@ -47,11 +50,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamSpec, dense_ffn, linear,
-                                       rms_norm, stack_specs, tree_map,
-                                       vocab_offset)
-from repro_torch.parallel.sharding import (copy_to_model, local_slice,
-                                           model_placements,
+from repro_torch.models.common import (ParamSpec, dense_ffn, draw_leaf,
+                                       linear, rms_norm, stack_specs,
+                                       tree_map, vocab_offset)
+from repro_torch.parallel.sharding import (copy_to_model, local_index,
+                                           local_slice, model_placements,
                                            reduce_from_model)
 
 Params = Dict[str, Any]
@@ -169,13 +172,14 @@ def stack_d_ff(cfg: ModelConfig, name: str) -> int:
 
 def tp_layouts(specs, cfg: ModelConfig, path: Tuple = ()):
     """For each leaf of `specs`, how a rank of the ``model`` axis holds it
-    in the tensor-parallel models: "whole" (MoE and MLA, run whole on
-    every rank), "paired" (the SSM's ``w_in``: `ssm.paired_columns`) or
-    "shard" (its ``model`` shard under the rules, which may be all of it
-    where the dim does not divide)."""
+    in the tensor-parallel models: "whole" (MoE's ``router`` and
+    ``router_bias``: every rank routes every token to every expert),
+    "paired" (the SSM's ``w_in``: `ssm.paired_columns`) or "shard" (its
+    ``model`` shard under the rules, which may be all of it where the dim
+    does not divide)."""
     if isinstance(specs, dict):
         return {k: tp_layouts(v, cfg, path + (k,)) for k, v in specs.items()}
-    if "moe" in path or ("attn" in path and cfg.attention == "mla"):
+    if path[-2:] in (("moe", "router"), ("moe", "router_bias")):
         return "whole"
     if path[-2:] == ("ssm", "w_in"):
         return "paired"
@@ -195,6 +199,25 @@ def local_leaf(x, spec: ParamSpec, layout: str, mesh, rules):
             mesh.get_local_rank("model"))
     return local_slice(x, mesh, model_placements(spec.logical, spec.shape,
                                                  mesh, rules))
+
+
+def local_draw(spec: ParamSpec, seed: int, layout: str, mesh, rules,
+               device) -> torch.Tensor:
+    """The rank's leaf by `layout`, drawn from `seed` (``common.draw_leaf``):
+    only the blocks it holds are drawn (a rank's experts of a stacked
+    expert leaf, each layer of the rest), and it equals `local_leaf` of
+    the whole leaf the seed draws.  No collective."""
+    if layout == "whole":
+        return draw_leaf(spec, seed, device)
+    if layout == "paired":
+        if not ssm_mod.paired_split(spec, mesh, rules):
+            return draw_leaf(spec, seed, device)
+        m = mesh.size(mesh.mesh_dim_names.index("model"))
+        return draw_leaf(spec, seed, device, cut=lambda t: (
+            ssm_mod.paired_columns(t, m, mesh.get_local_rank("model"))))
+    return draw_leaf(spec, seed, device, index=local_index(
+        spec.shape, mesh, model_placements(spec.logical, spec.shape, mesh,
+                                           rules)))
 
 
 def stacks(cfg: ModelConfig) -> List[Tuple[str, str, int]]:

@@ -194,7 +194,8 @@ def placements(pspec: Sequence[MeshAxes], mesh) -> list:
     """The DTensor placements of `pspec` on `mesh`: one per mesh dim,
     ``Shard(d)`` where tensor dim d is split over that mesh axis, else
     ``Replicate()``.  The axes of one tuple entry must come in the mesh's
-    order (outermost first), the only nesting DTensor's ``Shard`` has."""
+    order (outermost first), the only nesting DTensor's ``Shard`` has
+    (`mesh_ordered` puts them so)."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
@@ -209,13 +210,26 @@ def placements(pspec: Sequence[MeshAxes], mesh) -> list:
     return out
 
 
+def mesh_ordered(pspec: PartitionSpec, mesh) -> PartitionSpec:
+    """`pspec` with each tuple entry's axes in the mesh's order: the same
+    shards, dealt to the ranks in that order.  EP-2D's ``("model",
+    "data")`` on a ``("data", "model")`` mesh gives rank (d, m) chunk
+    d*M + m, where JAX's ``P(("model", "data"))`` gives it chunk m*D + d;
+    ``models/moe.py`` reads which experts a rank holds the port's way."""
+    names = list(mesh.mesh_dim_names)
+    return PartitionSpec(*(
+        tuple(sorted(entry, key=names.index))
+        if isinstance(entry, tuple) else entry for entry in pspec))
+
+
 def named_sharding(
     logical_dims: Sequence[Optional[str]],
     shape: Sequence[int],
     mesh,
     rules: AxisRules,
 ) -> NamedSharding:
-    spec = resolve_pspec(logical_dims, shape, mesh, rules)
+    spec = mesh_ordered(resolve_pspec(logical_dims, shape, mesh, rules),
+                        mesh)
     return NamedSharding(mesh, tuple(placements(spec, mesh)))
 
 
@@ -241,7 +255,18 @@ def with_logical_constraint(x: torch.Tensor, *logical_dims: Optional[str]):
       row-parallel outputs (``wo``, ``w_down``, ``w_out``) all-reduced;
     - embed and logits to ``act_vocab`` (``transformer.py:351, 358,
       376``): the vocab-parallel embedding, logits and cross-entropy
-      (``models/common.py``), and `vocab_argmax` for greedy decode.
+      (``models/common.py``), and `vocab_argmax` for greedy decode;
+    - MLA's q, k and v to ``act_heads`` (``attention.py:219-221``):
+      column-parallel ``wq_b``/``wk_b``/``wv_b`` on the whole latents
+      (``q_lat``, ``c_kv`` and the shared ``k_rope`` enter through
+      `copy_to_model`), the row-parallel ``wo`` all-reduced;
+    - MoE's dispatch buffer to ``act_expert`` and ``act_expert2``
+      (``moe.py:155-160``): a rank dispatches only to the experts it
+      holds (``expert`` on ``model``) or runs every expert on its
+      ``expert_mlp`` columns; where the rules also put ``expert`` on a
+      batch axis (EP-2D) the buffer goes to the experts' holders and
+      back by `all_to_all` over that axis; the routed and shared
+      experts' partial sums are all-reduced once.
     """
     from torch.distributed.tensor import DTensor
     ctx = current_context()
@@ -267,20 +292,25 @@ class ModelGroup:
     rank: int
 
 
-def model_group() -> Optional[ModelGroup]:
-    """The ``model`` axis of the current sharding_context's mesh, or None
-    where no collective is due: outside a context, on a mesh with no
-    ``model`` axis or one of size 1, or on a device-less mesh."""
+def axis_group(axis: str) -> Optional[ModelGroup]:
+    """Mesh axis `axis` of the current sharding_context's mesh (its
+    process group, size and the rank's coordinate), or None where no
+    collective is due: outside a context, on a mesh without the axis or
+    with one of size 1, or on a device-less mesh."""
     ctx = current_context()
     mesh = None if ctx is None else ctx.mesh
     if (mesh is None or not hasattr(mesh, "get_group")
-            or MODEL_AXIS not in (mesh.mesh_dim_names or ())):
+            or axis not in (mesh.mesh_dim_names or ())):
         return None
-    if mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)) == 1:
+    size = mesh.size(mesh.mesh_dim_names.index(axis))
+    if size == 1:
         return None
-    return ModelGroup(mesh.get_group(MODEL_AXIS),
-                      mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)),
-                      mesh.get_local_rank(MODEL_AXIS))
+    return ModelGroup(mesh.get_group(axis), size, mesh.get_local_rank(axis))
+
+
+def model_group() -> Optional[ModelGroup]:
+    """The ``model`` axis of the current context (`axis_group`)."""
+    return axis_group(MODEL_AXIS)
 
 
 def model_placements(logical_dims: Sequence[Optional[str]],
@@ -289,7 +319,8 @@ def model_placements(logical_dims: Sequence[Optional[str]],
     `rules` with only its ``model`` shard kept: how a rank holds it in the
     tensor-parallel models (whole over the batch axes)."""
     from torch.distributed.tensor import Replicate
-    place = placements(resolve_pspec(logical_dims, shape, mesh, rules), mesh)
+    place = placements(mesh_ordered(resolve_pspec(logical_dims, shape, mesh,
+                                                  rules), mesh), mesh)
     return [p if name == MODEL_AXIS else Replicate()
             for name, p in zip(mesh.mesh_dim_names, place)]
 
@@ -360,6 +391,32 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return x if mg is None else _ReduceFromModel.apply(x, mg.group)
 
 
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all`: its backward is the reverse exchange, the same
+    exchange of equal chunks on the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.apply(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Dim 0 of `x` cut into as many equal chunks as `group` has ranks,
+    chunk j sent to group rank j; chunk j of the result is what rank j
+    sent this rank (differentiable: the gradient goes back the same
+    way)."""
+    return _AllToAll.apply(x, group)
+
+
 def max_over_model(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max over the ``model`` ranks (no gradient)."""
     import torch.distributed as dist
@@ -420,28 +477,35 @@ def logical_sharding(logical_dims, shape) -> Optional[NamedSharding]:
 # a rank's shard, cut locally
 # ---------------------------------------------------------------------------
 
-def local_slice(x, mesh, place: Sequence):
-    """The calling rank's shard of the whole `x` (a tensor or a numpy
-    array, a view where the indexing allows) under `place`: each mesh dim
-    that shards tensor dim d cuts it into equal chunks, in mesh-dim order,
-    and keeps the chunk at the rank's coordinate.  No collective."""
+def local_index(shape: Sequence[int], mesh, place: Sequence) -> tuple:
+    """The calling rank's shard of a tensor of `shape` under `place`, as
+    one slice a dim: each mesh dim that shards tensor dim d cuts it into
+    equal chunks, in mesh-dim order, and keeps the chunk at the rank's
+    coordinate."""
     from torch.distributed.tensor import Shard
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("local_slice: the calling rank is not in the mesh")
-    index = [slice(None)] * len(x.shape)
-    lengths = list(x.shape)
+    index = [slice(None)] * len(shape)
+    lengths = list(shape)
     for m, p in enumerate(place):
         if not isinstance(p, Shard):
             continue
         d, n = p.dim, mesh.size(m)
         if lengths[d] % n:
-            raise ValueError(f"local_slice: dim {d} of {tuple(x.shape)} "
+            raise ValueError(f"local_slice: dim {d} of {tuple(shape)} "
                              f"does not split {n} ways")
         lengths[d] //= n
         start = (index[d].start or 0) + coord[m] * lengths[d]
         index[d] = slice(start, start + lengths[d])
-    return x[tuple(index)]
+    return tuple(index)
+
+
+def local_slice(x, mesh, place: Sequence):
+    """The calling rank's shard of the whole `x` (a tensor or a numpy
+    array, a view where the indexing allows) under `place`
+    (`local_index`).  No collective."""
+    return x[local_index(x.shape, mesh, place)]
 
 
 def mesh_device(mesh) -> torch.device:

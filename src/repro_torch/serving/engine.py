@@ -17,9 +17,11 @@ submits the same requests in the same order and runs the same loop.
 Prefill and decode run under ``sharding_context(pilot.mesh, rules)``, as
 the reference's runtime does, and so tensor-parallel over the ``model``
 axis (``models/transformer.py``): each rank holds only its ``model``
-shard of each flattened leaf (``transformer.local_leaf``), drawn leaf by
-leaf where the engine draws the params, in a DataUnit named for its rank
-(``<name>.r<rank>.shards``; give each rank its own checkpoint directory).
+shard of each flattened leaf (``transformer.local_leaf``: its experts, its
+heads, its columns), in a DataUnit named for its rank
+(``<name>.r<rank>.shards``; give each rank its own checkpoint directory);
+where the engine draws the params, a rank draws only its blocks of each
+leaf (``transformer.local_draw``), so no leaf is ever whole on a card.
 Greedy sampling is the distributed argmax (``common.vocab_argmax``).
 Every decision that feeds a collective is agreed: rank 0 picks which
 requests a pass admits (and into which rows) and when the loop stops,
@@ -355,6 +357,7 @@ class ServingEngine:
         self._deployed = False
         self._closed = False
         self._reaper_stop = threading.Event()
+        self._crash: Optional[BaseException] = None   # a loop's last error
         self._reaper: Optional[threading.Thread] = None
         self.counters = {"tokens_served": 0, "decode_steps": 0,
                          "refills": 0, "waves": 0, "recovered_requests": 0,
@@ -413,36 +416,47 @@ class ServingEngine:
         """The flattened param leaves as host arrays (bf16 as bits), each
         the rank's ``model`` shard over a pilot mesh.  Drawn here, leaf by
         leaf, from a generator seeded `seed` where no params were given
-        (``common.iter_init``: the draws of ``model.init``); the engine
-        keeps no reference to the params after: the shards are the params
-        from here on, so that one device copy of the weights is live (none,
-        once the caller drops its own)."""
-        from repro_torch.models.common import iter_init
-        from repro_torch.models.transformer import local_leaf, tp_layouts
+        (the draws of ``model.init``), over a pilot mesh only the rank's
+        blocks of each (``transformer.local_draw``: no rank draws a leaf
+        no card holds whole); the engine keeps no reference to the params
+        after: the shards are the params from here on, so that one device
+        copy of the weights is live (none, once the caller drops its
+        own)."""
+        from repro_torch.models.common import iter_init, leaf_seed
+        from repro_torch.models.transformer import (local_draw, local_leaf,
+                                                    tp_layouts)
         from repro_torch.parallel.sharding import AxisRules
         specs = self.model.specs
+        flat = [s for _, s in flatten_params(specs)]
+        lays = [lay for _, lay in flatten_params(tp_layouts(specs,
+                                                            self.cfg))]
+        dev, mesh = self.session.device, self._mesh
         if self._params is None:
-            gen = torch.Generator(device=self.session.device)
+            gen = torch.Generator(device=dev)
             gen.manual_seed(self._seed)
             self._paths = [path for path, _ in flatten_params(specs)]
-            leaves = iter_init(specs, gen, self.session.device)
+            leaves = (iter_init(specs, gen, dev) if mesh is None else (
+                local_draw(spec, leaf_seed(gen), lay, mesh, AxisRules(), dev)
+                for spec, lay in zip(flat, lays)))
         else:
             pairs = flatten_params(self._params)
             self._paths = [path for path, _ in pairs]
             leaves = (t for _, t in pairs)
+            if mesh is not None:
+                leaves = (local_leaf(t, spec, lay, mesh,
+                                     AxisRules()).contiguous()
+                          for t, spec, lay in zip(leaves, flat, lays))
         self._params = None
-        if self._mesh is not None:
-            cut = zip([s for _, s in flatten_params(specs)],
-                      [lay for _, lay in flatten_params(
-                          tp_layouts(specs, self.cfg))])
-            leaves = (local_leaf(t, spec, lay, self._mesh,
-                                 AxisRules()).contiguous()
-                      for t, (spec, lay) in zip(leaves, cut))
         self._bf16, out = [], []
         for t in leaves:
             self._bf16.append(t.dtype == torch.bfloat16)
             out.append(tensor_to_numpy(t, bf16_bits=True))
             del t
+        if dev.type == "cuda":
+            # the allocator frees the draw's cached blocks: split by the
+            # first shards copied back, they would leave no room for a
+            # rank's largest one (Mixtral-8x22B's 21 GiB w_gate over 1x4)
+            torch.cuda.empty_cache()
         return out
 
     def _attach_replica(self, pilot) -> None:
@@ -824,8 +838,8 @@ class ServingEngine:
         if rep.task is not None:
             try:
                 rep.task.result(timeout=5.0)
-            except Exception:   # noqa: BLE001 - crash IS the signal
-                pass
+            except Exception as e:   # noqa: BLE001 - crash IS the signal
+                self._crash = e
         with self._lock:
             self._replicas.pop(pid, None)
         for req in rep.drain():
@@ -894,17 +908,25 @@ class ServingEngine:
 
     # -- waiting / teardown ----------------------------------------------
     def drain(self, timeout: Optional[float] = None) -> None:
-        """Block until every submitted request has completed."""
+        """Block until every submitted request has completed.  Raises at
+        once, from the loop's error, when a replica loop crashed and no
+        replica is left to serve and no supervisor to respawn one."""
         deadline = (None if timeout is None
                     else time.monotonic() + timeout)
         with self._done_cond:
             while self._completed < len(self._requests):
+                if (self._crash is not None and not self._replicas
+                        and self.session.supervisor is None):
+                    raise RuntimeError(
+                        f"{len(self._requests) - self._completed} requests "
+                        f"unserved: every replica's loop failed"
+                    ) from self._crash
                 rem = (None if deadline is None
                        else deadline - time.monotonic())
                 if rem is not None and rem <= 0:
                     raise TimeoutError(
                         f"{len(self._requests) - self._completed} requests "
-                        f"still in flight after {timeout}s")
+                        f"still in flight after {timeout}s") from self._crash
                 self._done_cond.wait(rem if rem is None else min(rem, 0.1))
 
     def close(self, timeout: float = 10.0) -> None:
@@ -930,6 +952,13 @@ class ServingEngine:
                     rep.task.result(timeout=timeout)
                 except Exception:   # noqa: BLE001 - dead replica loops
                     pass
+        # the loops are done with the pilot mesh and the admissions'
+        # group: drop them, so that destroy_process_group frees the groups
+        # and joins their gloo workers (a group kept alive past that, here
+        # by the engine's reference cycles, lets a worker drop its last
+        # work's tensors while the interpreter exits, which aborts it)
+        self.__dict__.pop("_group", None)
+        self._mesh = None
 
     def __enter__(self) -> "ServingEngine":
         return self

@@ -45,9 +45,11 @@ from repro_torch.models.transformer import tp_layouts
 from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.parallel.sharding import (AxisRules, batch_dims,
-                                           local_slice, named_sharding, owned,
-                                           placements, resolve_pspec,
-                                           shard_tensor, sharding_context)
+                                           from_local, local_index,
+                                           local_slice, mesh_device,
+                                           named_sharding, owned, placements,
+                                           resolve_pspec, shard_tensor,
+                                           sharding_context)
 
 MOE_AUX_COEF = 0.01
 MTP_COEF = 0.3
@@ -173,6 +175,30 @@ def shard_train_state(state: TrainState, shardings: TrainState) -> TrainState:
         for x, sh in zip(tree_leaves(state), tree_leaves(shardings))])
 
 
+def init_sharded_train_state(model: Model, generator: torch.Generator,
+                             pcfg: ParallelConfig, mesh,
+                             rules: Optional[AxisRules] = None) -> TrainState:
+    """What ``shard_train_state(init_train_state(...), shardings)`` gives,
+    made shard by shard: each rank draws only its blocks of each param
+    (``common.draw_leaf`` from the seeds ``init_train_state`` draws from
+    `generator`) and zero moments of its shards' shapes, so a state no
+    card holds whole can be set up.  No collective."""
+    from repro_torch.models.common import draw_leaf, leaf_seed
+    shardings = train_state_shardings(model, mesh, rules)
+    dev = mesh_device(mesh)
+    specs = tree_leaves(model.specs)
+    places = [sh.placements for sh in tree_leaves(shardings.params)]
+    local = [draw_leaf(spec, leaf_seed(generator), dev,
+                       index=local_index(spec.shape, mesh, place))
+             for spec, place in zip(specs, places)]
+    opt = adamw_init(local, pcfg.opt_state_dtype)
+    wrap = lambda ts: tree_unflatten(model.specs, [
+        from_local(t, mesh, place, spec.shape)
+        for t, place, spec in zip(ts, places, specs)])
+    return TrainState(wrap(local), OptState(wrap(opt.m), wrap(opt.v),
+                                            opt.count))
+
+
 def gather_state(state):
     """The tree with every DTensor leaf gathered whole (a collective)."""
     from torch.distributed.tensor import DTensor
@@ -191,18 +217,25 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
     Ranks that differ only in their ``model`` coordinate take the same
     batch slice and split its work: each runs the model on its leaves of
     ``transformer.tp_layouts`` (a "shard" leaf gathered over the batch
-    axes only, a "whole" one, MoE and MLA, gathered whole, the SSM's
-    ``w_in`` gathered whole and cut to the rank's channels), inside a
-    ``sharding_context`` that issues the tensor-parallel collectives and
-    takes batch-wide means over the global batch
-    (``sharding.batch_mean``).  A "shard" leaf's gradient is the rank's
-    shard and is reduce-scattered over the batch axes only; a "whole"
-    leaf's is whole and alike on every ``model`` rank; a cut ``w_in``'s
-    is put back in its columns of a zero leaf and summed over the
-    ``model`` ranks too.  The global gradient norm sums each leaf's
-    squares over only the mesh dims that shard it, so a replicated leaf
-    counts once.  At one rank, and over a ``model`` axis of 1, the step
-    computes what ``make_train_step`` computes, bit for bit.
+    axes only, a "whole" one, MoE's router, gathered whole, the SSM's
+    ``w_in`` gathered whole and cut to the rank's channels, and a
+    "held" one, an expert leaf whose ``expert`` dim the rules shard over
+    a batch axis too (EP-2D), not gathered on that dim: the rank's
+    experts take every data rank's tokens through ``moe``'s
+    all-to-all), inside a ``sharding_context`` that issues the
+    tensor-parallel collectives and takes batch-wide means over the
+    global batch (``sharding.batch_mean``).  A "shard" leaf's gradient
+    is the rank's shard and is reduce-scattered over the batch axes
+    only; a "whole" leaf's is whole and alike on every ``model`` rank; a
+    cut ``w_in``'s is put back in its columns of a zero leaf and summed
+    over the ``model`` ranks too; a "held" leaf's arrives summed over
+    every data rank's tokens by the all-to-all's backward, so it is the
+    rank's shard on the batch axes that shard its experts (scaled by the
+    same 1/ranks as the others) and partial on the rest.  The global
+    gradient norm sums each leaf's squares over only the mesh dims that
+    shard it, so a replicated leaf counts once.  At one rank, and over a
+    ``model`` axis of 1, the step computes what ``make_train_step``
+    computes, bit for bit.
     """
     import torch.distributed as dist
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -219,17 +252,36 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
     cfg = model.cfg
     names = list(mesh.mesh_dim_names)
     mdim = names.index("model") if "model" in names else None
-    # per leaf: "whole", "shard" or "cut" (a paired leaf the rules split)
+
+    def held(spec) -> bool:
+        """An expert leaf whose ``expert`` dim a batch axis shards."""
+        if "expert" not in spec.logical:
+            return False
+        edim = spec.logical.index("expert")
+        place = named_sharding(spec.logical, spec.shape, mesh,
+                               rules).placements
+        return any(place[m] == Shard(edim) for m in bdims)
+
+    # per leaf: "whole", "shard", "held" or "cut" (a paired leaf the
+    # rules split)
     kinds = ["cut" if lay == "paired" and paired_split(spec, mesh, rules)
-             else "whole" if lay in ("whole", "paired") else "shard"
+             else "whole" if lay in ("whole", "paired")
+             else "held" if held(spec) else "shard"
              for lay, spec in zip(tree_leaves(tp_layouts(model.specs, cfg)),
                                   tree_leaves(model.specs))]
+    edims = [s.logical.index("expert") if k == "held" else None
+             for s, k in zip(tree_leaves(model.specs), kinds)]
 
-    def model_leaf(p, kind):
+    def kept(pl, m, edim) -> bool:
+        """Whether the rank keeps its shard on mesh dim `m`: the model
+        dim's, and a held leaf's expert dim's."""
+        return m == mdim or (edim is not None and pl == Shard(edim))
+
+    def model_leaf(p, kind, edim):
         """The rank's leaf of the DTensor `p` for the model (a
         collective)."""
-        if kind == "shard":
-            keep = [pl if m == mdim else Replicate()
+        if kind in ("shard", "held"):
+            keep = [pl if kept(pl, m, edim) else Replicate()
                     for m, pl in enumerate(p.placements)]
             return p.redistribute(mesh, keep).to_local()
         whole = p.full_tensor()
@@ -238,15 +290,18 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
                                   mesh.get_local_rank("model"))
         return whole
 
-    def grad_src(p, kind, g):
+    def grad_src(p, kind, edim, g):
         """(the rank's gradient, its placements: partial sums over the
-        batch dims and, for a cut leaf, the model dim)."""
+        batch dims but a held leaf's expert dims and, for a cut leaf,
+        the model dim)."""
         if kind == "cut":
             g = unpaired_columns(g, p.shape[-1], mesh.size(mdim),
                                  mesh.get_local_rank("model"))
         on_model = {"cut": Partial(), "whole": Replicate()}.get(
             kind, None if mdim is None else p.placements[mdim])
-        src = [Partial() if m in bdims else on_model if m == mdim
+        src = [p.placements[m] if m in bdims and kept(p.placements[m], m,
+                                                       edim)
+               else Partial() if m in bdims else on_model if m == mdim
                else Replicate() for m in range(mesh.ndim)]
         return g, src
 
@@ -270,8 +325,8 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
     def train_step(state: TrainState, batch):
         with torch.no_grad(), record_function("gather"):
             params = tree_unflatten(state.params, [
-                model_leaf(p, k)
-                for p, k in zip(tree_leaves(state.params), kinds)])
+                model_leaf(p, k, e) for p, k, e in zip(
+                    tree_leaves(state.params), kinds, edims)])
         # backward on this thread (not autograd's device thread): the
         # checkpointed layers' recomputation then sees the context too
         with sharding_context(mesh, rules), \
@@ -288,7 +343,7 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
                 grads[i] = None            # one fp32 leaf at a time
                 if n_batch > 1:
                     g = g / n_batch
-                g, src = grad_src(p, kinds[i], g)
+                g, src = grad_src(p, kinds[i], edims[i], g)
                 local.append(from_partial(g, mesh, src, p.placements))
                 del g
             keys = sorted(metrics)

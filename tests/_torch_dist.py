@@ -72,10 +72,13 @@ def spawn(code: str, world: int, tmp_path, timeout: float = 120.0,
                 [sys.executable, "-c", script], env={**env, "RANK": str(r)},
                 stdout=fo, stderr=fe))
     deadline = time.monotonic() + timeout
+    first_bad = None                # the first rank seen to exit non-zero
     try:
         while any(p.poll() is None for p in procs):
-            if (time.monotonic() > deadline
-                    or any(p.poll() not in (None, 0) for p in procs)):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad and first_bad is None:
+                first_bad = bad[0]
+            if time.monotonic() > deadline or bad:
                 break
             time.sleep(0.1)
     finally:
@@ -83,13 +86,32 @@ def spawn(code: str, world: int, tmp_path, timeout: float = 120.0,
             if p.poll() is None:
                 p.kill()
             p.wait()
-    for r, (p, (so, se)) in enumerate(zip(procs, logs)):
-        text, err = so.read_text(), se.read_text()
-        assert p.returncode == 0 and f"rank-ok {r}" in text, (
-            f"rank {r} exited {p.returncode} (negative: killed, after a "
-            f"peer failed or at the {timeout} s limit):\n{text[-2000:]}\n"
-            f"{err[-4000:]}")
+    if first_bad is None:
+        first_bad = next((r for r, p in enumerate(procs)
+                          if p.returncode not in (0, -9)), None)
+    texts = [(so.read_text(), se.read_text()) for so, se in logs]
+    ok = all(p.returncode == 0 and f"rank-ok {r}" in text
+             for r, (p, (text, _)) in enumerate(zip(procs, texts)))
+    assert ok, _report(procs, texts, first_bad, timeout)
     return out
+
+
+def _report(procs, texts, first_bad, timeout) -> str:
+    """Every rank's exit code, whether it printed ``rank-ok``, and the
+    tails of its stdout and stderr; the first rank seen to exit non-zero
+    is marked (a negative code is a kill: after a peer failed, or at the
+    limit)."""
+    lines = [f"ranks failed (negative exit: killed, after a peer failed "
+             f"or at the {timeout} s limit):"]
+    for r, (p, (text, err)) in enumerate(zip(procs, texts)):
+        mark = "  <- first to exit non-zero" if r == first_bad else ""
+        lines.append(f"rank {r}: exit {p.returncode}, rank-ok "
+                     f"{'printed' if f'rank-ok {r}' in text else 'missing'}"
+                     f"{mark}")
+    for r, (text, err) in enumerate(texts):
+        lines.append(f"--- rank {r} stdout (tail) ---\n{text[-1500:]}")
+        lines.append(f"--- rank {r} stderr (tail) ---\n{err[-3000:]}")
+    return "\n".join(lines)
 
 
 def run_jax(code: str, devices: int, timeout: float = 120.0) -> str:

@@ -12,6 +12,13 @@ Llama (2 layers) at seq 64 x batch 8:
 - its FLOPs lie within FLOPS_RTOL of ``HloCostModel``'s at (8, 1), and
   at (4, 2), where the ``model`` axis splits the work (tensor-parallel
   activations) as it splits the reference's: a rank plans (8, 1)'s FLOPs.
+- Reduced Mixtral (2 layers, its published 8 experts) at (4, 2), its
+  experts over the ``model`` axis: its FLOPs a rank lie within
+  FLOPS_RTOL of the JAX dry-run's; under the EP-2D rules
+  (``launch.autotune.EP2D``) the same cell plans the same FLOPs, counts
+  all-to-all bytes, and gathers fewer expert bytes (all-gather) and
+  peaks lower than under the default rules, which gather a rank's
+  experts over the data axis.
 """
 import json
 import os
@@ -103,7 +110,23 @@ def elastic():
     return {"generation": ctl.generation, "first": first, "second": second,
             "shapes": [e["shape"] for e in ctl.events]}
 
+mixtral = reduced(get_config("mixtral_8x22b"), num_layers=2)
+mixtral = dataclasses.replace(mixtral, moe=dataclasses.replace(
+    mixtral.moe, num_experts=8))
+
+def moe_cell(which):
+    from repro_torch.launch.autotune import EP2D
+    rules = AxisRules()
+    for logical, axes in (EP2D if which == "ep2d" else ()):
+        rules = rules.replacing(logical, axes)
+    rec = dryrun.plan_cell(mixtral, TRAIN, grid((4, 2)), rules)
+    return {"flops": rec["roofline"]["flops_per_device"],
+            "peak": rec["roofline"]["peak_mem_bytes"],
+            "coll": rec["roofline"]["coll_by_kind"]}
+
 case("fake_step", fake_step)
+case("mixtral_4x2_default", lambda: moe_cell("default"))
+case("mixtral_4x2_ep2d", lambda: moe_cell("ep2d"))
 for shape in ((8, 1), (4, 1), (4, 2)):
     case("parity_%dx%d" % shape, lambda: parity(shape))
 case("small_train", lambda: cell(llama, TRAIN, grid((4, 2))))
@@ -157,6 +180,15 @@ for d, m in ((8, 1), (4, 1), (4, 2)):
     out[f"{d}x{m}"] = {
         "arg_bytes": compiled.memory_analysis().argument_size_in_bytes,
         "flops": HloCostModel(compiled.as_text()).cost().flops}
+mix = reduced(get_config("mixtral_8x22b"), num_layers=2)
+mix = dataclasses.replace(mix, moe=dataclasses.replace(mix.moe,
+                                                       num_experts=8))
+mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("data", "model"))
+jitted, args = build_lowerable(mix, shape, mesh, AxisRules(),
+                               ParallelConfig())
+with mesh:
+    compiled = jitted.lower(*args).compile()
+out["mixtral_4x2"] = {"flops": HloCostModel(compiled.as_text()).cost().flops}
 # the reference's autotune candidates (its module sets XLA_FLAGS when
 # imported, so it is imported here, never in the test process)
 out["candidates"] = {
@@ -225,6 +257,22 @@ def test_model_axis_repeats_the_work(plans):
     assert flops["4x2"] < flops["4x1"]
     coll = _value(plans, "small_train")["roofline"]["coll_by_kind"]
     assert coll["all-reduce"] > coll["reduce-scatter"]
+
+
+def test_expert_parallel_flops_match_jax(plans, jax_cells):
+    port = _value(plans, "mixtral_4x2_default")["flops"]
+    assert port == pytest.approx(jax_cells["mixtral_4x2"]["flops"],
+                                 rel=FLOPS_RTOL)
+
+
+def test_ep2d_plan_exchanges_the_experts_work(plans):
+    default = _value(plans, "mixtral_4x2_default")
+    ep = _value(plans, "mixtral_4x2_ep2d")
+    assert ep["flops"] == default["flops"]
+    assert "all-to-all" not in default["coll"]
+    assert ep["coll"]["all-to-all"] > 0
+    assert ep["coll"]["all-gather"] < default["coll"]["all-gather"]
+    assert ep["peak"] < default["peak"]
 
 
 def test_dryrun_cell_small_mesh(plans):

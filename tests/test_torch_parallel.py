@@ -11,8 +11,10 @@ one device or, where it needs a mesh, in a subprocess on 4 host devices.
   on the two pods the mean is the mean of the dequantized payloads;
 - the sharded train step over (4, 1) and (2, 2) data x model meshes, on
   ``reduced(llama3_2_1b)`` and ``reduced(mixtral_8x22b)`` (its softmax
-  router's load-balance loss taken over the global batch; its MoE whole
-  on every model rank, so a doubled residual sum would show) in fp32,
+  router's load-balance loss taken over the global batch; on (2, 2) its
+  experts split over the model axis, 2 of 4 a rank, the routing whole on
+  every rank: tests/test_torch_ep.py has the other expert layouts) in
+  fp32,
   with 2 microbatches on (2, 2), on ``reduced(falcon_mamba_7b)`` (the SSM
   split over the model axis) and ``reduced(hymba_1_5b)`` at 5 q heads
   and 1 kv head (the attention whole on every rank, its SSM and FFN

@@ -88,6 +88,26 @@ def test_engine_refill_exact_token_counts():
     assert st["tokens_served"] == 6 * 5  # exact: no padded/retired counting
 
 
+def test_a_crashed_loop_fails_drain_with_its_error():
+    """A replica loop that raises (here its model's decode) leaves no
+    replica to serve in an unsupervised session: ``drain`` raises at once
+    from that error rather than waiting out its timeout."""
+    class Broken(_StubModel):
+        def decode(self, params, cache, tokens, positions):
+            raise MemoryError("decode failed")
+
+    with PilotSession(device="cpu") as s:
+        s.add_pilots(1, memory_gb=0.25)
+        with ServingEngine(s, Broken(), batch_size=2, max_len=32) as eng:
+            eng.deploy()
+            eng.submit(np.arange(4, dtype=np.int32), 5)
+            t0 = time.monotonic()
+            with pytest.raises(RuntimeError, match="loop failed") as err:
+                eng.drain(timeout=60)
+            assert time.monotonic() - t0 < 30
+            assert isinstance(err.value.__cause__, MemoryError)
+
+
 def test_engine_inactive_rows_do_not_count_tokens():
     """Rows that finished early (short gen) or were padding in a prefill
     wave must stop sampling AND stop counting: tokens_served is exactly
