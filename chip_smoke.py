@@ -2124,6 +2124,119 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+ONE_RANK_STEPS = 3
+
+
+def one_rank_variants(torch, model, mesh, kernels: dict) -> dict:
+    """The published Llama-3.2-1B cell (8 x 1024) over the one-rank mesh
+    `mesh`, `ONE_RANK_STEPS` steps from one seeded init and the same
+    batches, under the sequence-parallel rules (``launch.autotune.SP``:
+    at a ``model`` axis of 1 the residual stays whole) with float32
+    AdamW state, and under the default rules with int8 state, each held
+    to the unsharded step bit for bit: metrics, params and moments.  No
+    kernel launches."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.launch.autotune import SP
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel.sharding import AxisRules
+    from repro_torch.train import steps as steps_mod
+    sp = AxisRules()
+    for logical, axes in SP:
+        sp = sp.replacing(logical, axes)
+    tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=10)
+    batches = [train_batch(torch, model.cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           200 + i, "cuda") for i in range(ONE_RANK_STEPS)]
+    lengths = []
+    layer = transformer.layer_forward
+
+    def recorded(lp, x, *a, **k):
+        lengths.append(x.shape[1])
+        return layer(lp, x, *a, **k)
+
+    out = {}
+    transformer.layer_forward = recorded
+    try:
+        for name, rules, dtype in (("seq_parallel", sp, "float32"),
+                                   ("int8_state", AxisRules(), "int8")):
+            pcfg = ParallelConfig(opt_state_dtype=dtype)
+            runs = []
+            for sharded in (False, True):
+                zero_counts(kernels)
+                lengths.clear()
+                torch.cuda.reset_peak_memory_stats()
+                state = steps_mod.init_train_state(
+                    model, torch.Generator(device="cuda").manual_seed(0),
+                    pcfg, device="cuda")
+                if sharded:
+                    state = steps_mod.shard_train_state(
+                        state, steps_mod.train_state_shardings(
+                            model, mesh, rules, dtype))
+                    step = steps_mod.make_sharded_train_step(
+                        model, pcfg, tcfg, mesh, rules)
+                else:
+                    step = steps_mod.make_train_step(model, pcfg, tcfg)
+                metrics, times = [], []
+                for batch in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, batch)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                    times.append((time.perf_counter() - t0) * 1e3)
+                launches = read_counts(kernels)
+                assert not any(launches.values()), launches
+                whole = steps_mod.gather_state(state)
+                runs.append({"metrics": metrics, "step_ms": times,
+                             "peak_bytes": torch.cuda.max_memory_allocated(),
+                             "residual": sorted(set(lengths)),
+                             "leaves": [t.cpu() for t in tree_leaves(whole)]})
+                del state, step, whole
+                gc.collect()
+                torch.cuda.empty_cache()
+            assert runs[1]["metrics"] == runs[0]["metrics"], (name, runs)
+            assert len(runs[1]["leaves"]) == len(runs[0]["leaves"])
+            differ = []
+            for i, (a_, b_) in enumerate(zip(runs[1]["leaves"],
+                                             runs[0]["leaves"])):
+                bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                    a_.element_size()]
+                if a_.numel() == b_.numel():
+                    # an int8 moment's blocks in the leaf's order, laid out
+                    # by quant.block_layout
+                    a_ = a_.reshape(b_.shape)
+                if a_.dtype != b_.dtype or a_.shape != b_.shape:
+                    differ.append((i, str(a_.dtype), str(b_.dtype),
+                                   tuple(a_.shape), tuple(b_.shape)))
+                elif not torch.equal(a_.view(bits), b_.view(bits)):
+                    off = a_.float() != b_.float()
+                    differ.append((i, tuple(a_.shape), int(off.sum()),
+                                   float((a_.float() - b_.float()).abs()
+                                         .max())))
+            assert not differ, f"{name}: leaves differ {differ}"
+            assert runs[1]["residual"] == [TRAIN_SEQ], runs[1]["residual"]
+            out[name] = {"opt_state_dtype": dtype, "steps": ONE_RANK_STEPS,
+                         "bit_equal": True,
+                         "losses": [m["loss"] for m in runs[1]["metrics"]],
+                         "sharded_step_ms": runs[1]["step_ms"],
+                         "unsharded_step_ms": runs[0]["step_ms"],
+                         "sharded_peak_bytes": runs[1]["peak_bytes"],
+                         "unsharded_peak_bytes": runs[0]["peak_bytes"],
+                         "residual_length": runs[1]["residual"]}
+            log(f"one-rank NCCL mesh, {name} ({dtype} AdamW state): "
+                f"{ONE_RANK_STEPS} steps bit-equal to the unsharded step "
+                f"(metrics, params, moments); losses "
+                f"{out[name]['losses']}; step ms sharded "
+                f"{[round(t, 3) for t in runs[1]['step_ms']]} against "
+                f"{[round(t, 3) for t in runs[0]['step_ms']]}; peak "
+                f"{runs[1]['peak_bytes'] / 1e9:.3f} GB against "
+                f"{runs[0]['peak_bytes'] / 1e9:.3f}; residual between "
+                f"blocks {runs[1]['residual']} tokens")
+            del runs
+    finally:
+        transformer.layer_forward = layer
+    return out
+
+
 def sharded_training_phase(torch, kernels: dict, unsharded: dict) -> dict:
     """Trains Llama-3.2-1B at its published config through
     ``launch.train.run`` over a one-rank NCCL mesh, the same 30 steps of
@@ -2131,7 +2244,9 @@ def sharded_training_phase(torch, kernels: dict, unsharded: dict) -> dict:
     record is `unsharded`), and holds its losses and grad norms to that
     run's; its checkpoint (gathered, written by rank 0) restores through
     ``restore(shardings=)`` bit for bit; ``compressed_pod_mean`` runs on
-    a step's gradients over a (1, 1, 1) pod x data x model mesh.  No
+    a step's gradients over a (1, 1, 1) pod x data x model mesh; the
+    sequence-parallel rules and int8 AdamW state over the same mesh are
+    each bit-equal to the unsharded step (`one_rank_variants`).  No
     kernel launches (asserted by the counts)."""
     import datetime
     import shutil
@@ -2221,6 +2336,13 @@ def sharded_training_phase(torch, kernels: dict, unsharded: dict) -> dict:
         grad_bytes = sum(g.numel() * g.element_size()
                          for g in tree_leaves(grads))
         del grads, means, residuals
+        model = run.model
+        run.state = None                    # the variants draw their own
+        gc.collect()
+        torch.cuda.empty_cache()
+        variants_t0 = time.perf_counter()
+        variants = one_rank_variants(torch, model, mesh, kernels)
+        variants_s = time.perf_counter() - variants_t0
         row = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
                "backend": dist.get_backend(), "steps": len(run.losses),
                "losses": run.losses, "grad_norms": run.grad_norms,
@@ -2243,7 +2365,9 @@ def sharded_training_phase(torch, kernels: dict, unsharded: dict) -> dict:
                                COMPRESSION_REL_BOUND,
                                "residual_norm": res_norm,
                                "grad_bytes": grad_bytes, "ms": compress_ms,
-                               "first_call_ms": times[0]}}
+                               "first_call_ms": times[0]},
+               "one_rank_variants": variants,
+               "one_rank_variants_s": variants_s}
         log(f"sharded training llama3.2-1b (published config) over a "
             f"one-rank NCCL mesh {row['mesh']}: 30 steps in {wall:.3f} s; "
             f"median step {med * 1e3:.3f} ms against "
@@ -2260,7 +2384,7 @@ def sharded_training_phase(torch, kernels: dict, unsharded: dict) -> dict:
             f"call {times[0]:.3f} ms), max "
             f"relative error {rel:.6f} (bound {COMPRESSION_REL_BOUND}), "
             f"residual norm {res_norm:.6f}; kernel launches {launches}")
-        del run
+        del run, model
         dist.barrier()
     finally:
         dist.destroy_process_group()

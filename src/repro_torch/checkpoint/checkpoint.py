@@ -23,7 +23,11 @@ collective.  A rank outside the state's mesh may not save it
 reads the checkpoint back meets the writer at a barrier first.
 ``restore(like, step, shardings=)`` is the elastic re-mesh: each leaf
 with a ``NamedSharding`` goes onto its (mesh, placements), each rank
-reading only its own shard out of the file, so nothing is broadcast.
+reading only its own shard out of the file, so nothing is broadcast.  An
+int8 moment's blocks (a ``NamedSharding`` with a ``shape``,
+``train.steps.train_state_shardings``) are laid out by that shape first,
+so a checkpoint of one layout restores into another
+(``optim.quant.fit_blocks``).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import torch
 
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models.common import tree_leaves, tree_node, tree_unflatten
+from repro_torch.optim.quant import fit_blocks
 from repro_torch.parallel.sharding import from_local, local_slice, mesh_device
 
 # dtypes numpy can't hold -> stored as a same-width unsigned integer view
@@ -214,6 +219,8 @@ class CheckpointManager:
                 return _decode(np.load(d / info["file"]), info["dtype"],
                                dev if dev is not None else leaf.device)
             arr = np.load(d / info["file"], mmap_mode="r")
+            if sh.shape is not None:      # an int8 moment's blocks
+                arr = fit_blocks(arr, sh.shape)
             # a copy: the rank's shard is read, and the tensor never maps
             # the file (AdamW writes its state in place)
             local = np.array(local_slice(arr, sh.mesh, sh.placements))

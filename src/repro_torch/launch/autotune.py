@@ -13,10 +13,9 @@ card.  Winners are written to ``build/autotune/<arch>__<shape>__<mesh>.json``.
 The models run tensor-parallel over the ``model`` axis and
 expert-parallel where the rules put ``expert`` on it; an EP-2D variant
 also holds each rank's experts over the data axis and exchanges the
-dispatch buffer by an all-to-all (``models/moe.py``).  A variant that
-moves only a sequence layout (sequence parallelism) shows no gain: no
-activation follows a sequence rule.  Each summary says so in its
-``note``.
+dispatch buffer by an all-to-all (``models/moe.py``), and the
+``seq_parallel`` variant (``SP``) runs the residual sequence-parallel
+over the ``model`` axis (``models/transformer.py``).
 """
 import argparse
 import json
@@ -28,9 +27,6 @@ from repro_torch.launch.dryrun import mesh_name, run_cell
 from repro_torch.parallel.sharding import AxisRules
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "autotune"
-NOTE = ("a sequence layout over the model axis shows no gain: no "
-        "activation follows a sequence rule (sequence parallelism is not "
-        "ported)")
 
 EP2D = (("expert", ("model", "data")), ("act_expert2", ("model", "data")),
         ("expert_embed", None), ("moe_group2", None))
@@ -101,7 +97,6 @@ def tune(arch: str, shape_name: str, multi_pod: bool = False) -> dict:
                            "peak_gib": r["roofline"]["peak_mem_bytes"] / 2**30,
                            "fits_hbm": r["fits_hbm"]}
                        for n, r in results},
-        "note": NOTE,
     }
     out = OUT_DIR / f"{arch}__{shape_name}__{name}.json"
     out.write_text(json.dumps(summary, indent=2))

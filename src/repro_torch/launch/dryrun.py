@@ -42,7 +42,11 @@ buffer's exchange counts under "all-to-all".  Records are written to
 production meshes (``--mesh pod|multipod|both``), ``--mesh`` takes any
 mesh (``DxM`` or ``PxDxM``) and ``--batch``/``--seq`` resize the shape:
 a plan of what a card run measures (``chip_smoke.py`` plans its
-training cell so).
+training cell so); ``--rules seq_parallel`` plans under
+``("seq", "model")``, where the model runs sequence-parallel
+(``models/transformer.py``).  A train cell with int8 AdamW state
+(``ParallelConfig.opt_state_dtype``, from ``autotune``/``hillclimb``)
+holds each rank's blocks (``quant.block_layout``).
 """
 from __future__ import annotations
 
@@ -65,7 +69,8 @@ from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.models.transformer import local_leaf, tp_layouts
 from repro_torch.parallel.sharding import (AxisRules, PartitionSpec,
-                                           axis_sizes, sharding_context)
+                                           axis_sizes, shard_shape,
+                                           sharding_context)
 from repro_torch.roofline import analysis as ra
 from repro_torch.train import steps as steps_mod
 from repro_torch.train.steps import TrainState
@@ -81,15 +86,10 @@ def mesh_name(multi_pod: bool) -> str:
     return "x".join(map(str, PRODUCTION_MESH[multi_pod][0]))
 
 
-def skip_reason(cfg, shape, pcfg: ParallelConfig | None = None) -> str | None:
+def skip_reason(cfg, shape) -> str | None:
     if shape.name == "long_500k" and not cfg.supports_long_decode:
         return ("full-attention arch: 512k dense-KV decode is not "
                 "serveable")
-    if (shape.kind == "train" and pcfg is not None
-            and pcfg.opt_state_dtype == "int8"):
-        return ("int8 AdamW state is refused by make_sharded_train_step: "
-                "its blocks run over the flattened leaf, and a shard's "
-                "blocks are not the leaf's")
     return None
 
 
@@ -193,7 +193,8 @@ def build_lowerable(cfg, shape, mesh, rules: AxisRules, pcfg: ParallelConfig):
                                                  mesh, rules)
         state = TrainState(params, adamw_init(params, pcfg.opt_state_dtype))
         state = steps_mod.shard_train_state(
-            state, steps_mod.train_state_shardings(model, mesh, rules))
+            state, steps_mod.train_state_shardings(model, mesh, rules,
+                                                   pcfg.opt_state_dtype))
         batch, _ = steps_mod.batch_specs(cfg, shape, mesh, rules)
         return step, (state, whole(batch))
 
@@ -233,9 +234,18 @@ def resident_bytes(cfg, shape, mesh, rules: AxisRules,
     ps = param_pspecs(model.specs, mesh, rules)
     out = {"params": _shard_bytes(meta, ps, mesh)}
     opt = adamw_init(meta, pcfg.opt_state_dtype)   # on the meta device
-    out["opt_state"] = (_shard_bytes(opt.m, ps, mesh)
-                        + _shard_bytes(opt.v, ps, mesh)
-                        + opt.count.element_size())
+    if pcfg.opt_state_dtype == "int8":
+        # a rank's blocks and scales (``quant.block_layout``)
+        sh = steps_mod.train_state_shardings(model, mesh, rules, "int8")
+        out["opt_state"] = sum(
+            math.prod(shard_shape(s.shape, mesh, s.placements))
+            * t.element_size()
+            for t, s in zip(tree_leaves((opt.m, opt.v)), tree_leaves(
+                (sh.opt_state.m, sh.opt_state.v))))
+    else:
+        out["opt_state"] = (_shard_bytes(opt.m, ps, mesh)
+                            + _shard_bytes(opt.v, ps, mesh))
+    out["opt_state"] += opt.count.element_size()
     out["batch"] = _shard_bytes(*steps_mod.batch_specs(cfg, shape, mesh,
                                                        rules), mesh)
     return out
@@ -322,7 +332,7 @@ def plan_named_cell(arch: str, shape, mesh_shape: tuple,
     label = "x".join(map(str, mesh_shape))
     rec: dict = {"arch": arch, "shape": shape.name, "mesh": label,
                  "tag": tag}
-    reason = skip_reason(cfg, shape, pcfg)
+    reason = skip_reason(cfg, shape)
     if reason:
         rec["status"] = "skipped"
         rec["reason"] = reason
@@ -346,10 +356,19 @@ def main(argv=None):
                     help="global batch in place of the shape's")
     ap.add_argument("--seq", type=int, default=None,
                     help="sequence length in place of the shape's")
+    ap.add_argument("--rules", default="default",
+                    choices=("default", "seq_parallel"),
+                    help="seq_parallel: the rule overrides of "
+                         "``launch.autotune``'s candidate of that name")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=str(DEFAULT_OUT))
     args = ap.parse_args(argv)
+    from repro_torch.launch.autotune import SP
+    rules = AxisRules()
+    for logical, axes in (SP if args.rules == "seq_parallel" else ()):
+        rules = rules.replacing(logical, axes)
+    tag = "" if args.rules == "default" else f"_{args.rules}"
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -372,14 +391,15 @@ def main(argv=None):
                         name=f"{shape_name}_b{args.batch or shape.global_batch}"
                              f"_s{args.seq or shape.seq_len}")
                 name = "x".join(map(str, mesh_shape))
-                path = out_dir / f"{arch}__{shape.name}__{name}.json"
+                path = out_dir / f"{arch}__{shape.name}__{name}{tag}.json"
                 if path.exists() and not args.force:
                     rec = json.loads(path.read_text())
                     print(f"[cached] {arch} {shape.name} {name}: "
                           f"{rec.get('status')}")
                     continue
                 try:
-                    rec = plan_named_cell(arch, shape, mesh_shape)
+                    rec = plan_named_cell(arch, shape, mesh_shape, rules,
+                                          tag=args.rules)
                 except Exception as e:  # noqa: BLE001 - record and continue
                     rec = {"arch": arch, "shape": shape.name,
                            "mesh": name, "status": "error",

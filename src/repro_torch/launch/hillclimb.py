@@ -11,17 +11,15 @@ process).  A "_regroup" patch is ignored, as in the reference.  Results
 land in ``build/perf/<cell>__<variant>.json``.
 
 The EP-2D variants hold each rank's experts over the data axis too and
-exchange the dispatch buffer by an all-to-all (``models/moe.py``); a
-variant that moves only a sequence layout over the ``model`` axis shows
-no gain: no activation follows a sequence rule.  Each record says so in
-its ``note``.
+exchange the dispatch buffer by an all-to-all (``models/moe.py``);
+``P1_seq_over_model`` runs the residual sequence-parallel over the
+``model`` axis (``models/transformer.py``).
 """
 import argparse
 import json
 from pathlib import Path
 
 from repro_torch.configs.base import ParallelConfig
-from repro_torch.launch.autotune import NOTE
 from repro_torch.launch.dryrun import run_cell
 from repro_torch.parallel.sharding import AxisRules
 
@@ -101,7 +99,6 @@ def run_variant(cell: str, variant: str):
     rec = run_cell(arch, shape, multi_pod=variant.endswith("@2pod"),
                    out_dir=PERF_DIR, rules=rules, pcfg=pcfg, tag=variant,
                    cfg_patch=cfg_patch)
-    rec["note"] = NOTE
     PERF_DIR.mkdir(parents=True, exist_ok=True)
     path = PERF_DIR / f"{cell}__{variant}.json"
     path.write_text(json.dumps(rec, indent=2, default=str))

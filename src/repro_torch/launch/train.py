@@ -263,7 +263,8 @@ def run(argv=None) -> TrainRun:
         shardings = None
         build_step = lambda: steps_mod.make_train_step(model, pcfg, tcfg)
     else:
-        shardings = steps_mod.train_state_shardings(model, mesh)
+        shardings = steps_mod.train_state_shardings(
+            model, mesh, opt_state_dtype=args.opt_dtype)
         state = steps_mod.shard_train_state(state, shardings)
         build_step = lambda: steps_mod.make_sharded_train_step(
             model, pcfg, tcfg, mesh)

@@ -44,6 +44,10 @@ the block runs whole on every rank.  MLA splits its heads the same way
 ``wo``, on latents whole on every rank (``wq_a``, ``wkv_a`` and their
 norms are whole); its decode cache, the latent, is whole on every rank
 too (the reference shards its ``kv_seq`` over ``model`` instead).
+Under sequence parallelism (``seq``, ``models/transformer.py``) every
+block takes the gathered sequence, RoPE at the absolute positions, and
+gives the rank's slice of its output; the prefill cache is the whole
+sequence's.
 
 Training (``train=True``, passed down from ``Model.train_forward``) never
 reaches a kernel: the flash kernel is forward-only (its op refuses inputs
@@ -66,7 +70,8 @@ from repro_torch.kernels.decode_attention.ops import decode_attention_op
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models.common import (ParamSpec, apply_rope, linear,
                                        rms_norm)
-from repro_torch.parallel.sharding import (copy_to_model, model_group,
+from repro_torch.parallel.sharding import (copy_to_model, enter_model,
+                                           leave_model, model_group,
                                            model_local_shape,
                                            reduce_from_model)
 
@@ -147,33 +152,36 @@ def local_heads(cfg: ModelConfig) -> Tuple[int, int]:
                 else len(sel))
 
 
-def _kv_weight(w: torch.Tensor, kv) -> torch.Tensor:
+def _kv_weight(w: torch.Tensor, kv, seq=None) -> torch.Tensor:
     """``wk``/``wv`` cut to the heads `kv` selects; the whole weight's
-    gradient then sums the ranks' parts."""
-    return w if kv is None else copy_to_model(w)[:, kv]
+    gradient then sums the ranks' parts (under sequence parallelism the
+    sharded step sums them, as every leaf whole on the ``model`` ranks)."""
+    if kv is None:
+        return w
+    return (w if seq is not None else copy_to_model(w))[:, kv]
 
 
 def gqa_forward(params, x, *, cfg: ModelConfig, positions,
-                window: int, train: bool = False) -> torch.Tensor:
+                window: int, train: bool = False, seq=None) -> torch.Tensor:
     """Full-sequence (train / prefill) GQA with RoPE.  `positions` must be
     ``arange(S)`` in every row (``model._positions``): the attention
     kernel places query and kv row i at position i.  On the rank's local
-    heads (`tp_heads`)."""
+    heads (`tp_heads`); under sequence parallelism (`seq`) `x` is the
+    gathered sequence and the output the rank's slice
+    (``sharding.leave_model``)."""
     split, kv = tp_heads(params, cfg)
-    if split:
-        x = copy_to_model(x)
+    x = enter_model(x, split, seq)
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_project(x, _kv_weight(params["wk"], kv)), positions,
+    k = apply_rope(_project(x, _kv_weight(params["wk"], kv, seq)), positions,
                    cfg.rope_theta)
-    v = _project(x, _kv_weight(params["wv"], kv))
+    v = _project(x, _kv_weight(params["wv"], kv, seq))
     if train:
         out = _attend_train(q, k, v, q_positions=positions,
                             kv_positions=positions, causal=True,
                             window=window)
     else:
         out = flash_attention_op(q, k, v, causal=True, window=window)
-    y = _out_proj(out, params["wo"])
-    return reduce_from_model(y) if split else y
+    return leave_model(_out_proj(out, params["wo"]), split, seq)
 
 
 def gqa_prefill_kv(params, x, *, cfg: ModelConfig, positions):
@@ -339,7 +347,10 @@ def _mla_qkv_latent(params, x, *, cfg: ModelConfig, positions,
     latent c_kv and the shared k_rope (post-RoPE).  With `split` the
     heads are the rank's, and the latents, whole on every rank, feed
     only them: ``q_lat``, c_kv and k_rope go through ``copy_to_model``
-    (after their norms, whose weights' gradients are then whole)."""
+    (after their norms, whose weights' gradients are then whole; under
+    sequence parallelism `mla_forward` passes no `split`: the gathered
+    input's backward sums the ranks' parts, and the sharded step the
+    latent weights')."""
     m = cfg.mla
     enter = copy_to_model if split else (lambda t: t)
     q_lat = enter(rms_norm(linear(x, params["wq_a"]), params["q_norm"],
@@ -358,17 +369,20 @@ def _mla_qkv_latent(params, x, *, cfg: ModelConfig, positions,
 
 def mla_forward(params, x, *, cfg: ModelConfig, positions,
                 chunk: int = MLA_CHUNK, return_cache: bool = False,
-                train: bool = False):
+                train: bool = False, seq=None):
     """Train / prefill MLA: the latent expanded to per-head K/V, causal
     attention with the scale of the full QK head width, (qk_nope +
     qk_rope)**-0.5; with `train`, each chunk is checkpointed.  With
     `return_cache`, returns (y, (c_kv, k_rope)), the decode cache's
     entries from the same projection.  On the rank's heads
-    (`mla_split`), its ``wo``'s partial sums added over the ranks."""
+    (`mla_split`), its ``wo``'s partial sums added over the ranks; under
+    sequence parallelism (`seq`) `x` is the gathered sequence, the output
+    the rank's slice and the cache whole."""
     m = cfg.mla
     split = mla_split(params, cfg)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(
-        params, x, cfg=cfg, positions=positions, split=split)
+        params, x, cfg=cfg, positions=positions,
+        split=split and seq is None)
     k_nope = _project(c_kv, params["wk_b"])
     v = _project(c_kv, params["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -377,9 +391,7 @@ def mla_forward(params, x, *, cfg: ModelConfig, positions,
     out = _attend_chunked(q[:, :, :, None, :], k, v, q_positions=positions,
                           kv_positions=positions, causal=True, window=0,
                           chunk=chunk, remat=train)      # g=1 (nkv == nq)
-    y = _out_proj(out[..., 0, :], params["wo"])
-    if split:
-        y = reduce_from_model(y)
+    y = leave_model(_out_proj(out[..., 0, :], params["wo"]), split, seq)
     return (y, (c_kv, k_rope)) if return_cache else y
 
 
@@ -454,13 +466,13 @@ def encoder_attention(params, x, *, cfg: ModelConfig, positions,
 
 
 def cross_attention(params, x, enc_k, enc_v, *, cfg: ModelConfig,
-                    train: bool = False):
+                    train: bool = False, seq=None):
     """x: (B,S,d) decoder side (the prompt, or one decode token); enc_k,
     enc_v: (B,T,nkv,hd) precomputed (`cross_kv`, the rank's kv heads).
-    No RoPE, no mask."""
+    No RoPE, no mask.  Under sequence parallelism (`seq`) `x` is the
+    gathered sequence and the output the rank's slice."""
     split, _ = tp_heads(params, cfg)
-    if split:
-        x = copy_to_model(x)
+    x = enter_model(x, split, seq)
     q = _project(x, params["wq"])
     if train:
         b, s, t = x.shape[0], x.shape[1], enc_k.shape[1]
@@ -470,15 +482,17 @@ def cross_attention(params, x, enc_k, enc_v, *, cfg: ModelConfig,
                             kv_positions=zeros(t), causal=False)
     else:
         out = flash_attention_op(q, enc_k, enc_v, causal=False)
-    y = _out_proj(out, params["wo"])
-    return reduce_from_model(y) if split else y
+    return leave_model(_out_proj(out, params["wo"]), split, seq)
 
 
-def cross_kv(params, enc_out, cfg: Optional[ModelConfig] = None):
+def cross_kv(params, enc_out, cfg: Optional[ModelConfig] = None, seq=None):
     """The encoder's K/V for cross attention: the rank's kv heads (whole
-    params without `cfg`)."""
+    params without `cfg`).  The encoder runs whole on every rank; under
+    sequence parallelism (`seq`) each rank's queries are its slice's, so
+    the gradient of `enc_out` sums the ranks' parts whether or not the
+    heads split."""
     split, kv = (False, None) if cfg is None else tp_heads(params, cfg)
-    if split:
+    if split or seq is not None:
         enc_out = copy_to_model(enc_out)
-    return (_project(enc_out, _kv_weight(params["wk"], kv)),
-            _project(enc_out, _kv_weight(params["wv"], kv)))
+    return (_project(enc_out, _kv_weight(params["wk"], kv, seq)),
+            _project(enc_out, _kv_weight(params["wv"], kv, seq)))

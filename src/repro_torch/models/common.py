@@ -15,7 +15,10 @@ block whose weights are split there (the local width below the config's)
 enters through `copy_to_model` and leaves through `reduce_from_model`,
 as `dense_ffn` with ``split``; a block whose weights are whole on every
 rank (heads that do not divide the axis) computes the whole
-output and issues no collective.  ``cross_entropy_loss`` is the training
+output and issues no collective.  Where the rules put ``seq`` on that
+axis (sequence parallelism, ``models/transformer.py``) a block takes the
+gathered sequence and gives the rank's sequence slice of its output
+(``sharding.enter_model``/``leave_model``).  ``cross_entropy_loss`` is the training
 loss: an fp32 log-sum-exp with the optional z-loss and mask, over the
 rank's slice of the vocabulary where the logits are vocab-parallel.
 """
@@ -29,9 +32,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import (copy_to_model, gather_over_model,
-                                           max_over_model, model_group,
-                                           reduce_from_model)
+from repro_torch.parallel.sharding import (enter_model, gather_over_model,
+                                           leave_model, max_over_model,
+                                           model_group, reduce_from_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,13 +289,14 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 
 
 def dense_ffn(x: torch.Tensor, ffn_params, act: str = "swiglu",
-              split: bool = False):
+              split: bool = False, seq=None):
     """Dense FFN: 3-matrix SwiGLU or 2-matrix GELU (starcoder2/whisper).
     With `split`, the params are the rank's ``mlp`` shard: column-parallel
     ``w_gate``/``w_up``, row-parallel ``w_down``, its partial sums added
-    over the ``model`` ranks."""
-    if split:
-        x = copy_to_model(x)
+    over the ``model`` ranks.  Under sequence parallelism (`seq`, a
+    ``sharding.seq_group``) `x` is the gathered sequence and the output
+    the rank's slice of the sum (``sharding.leave_model``)."""
+    x = enter_model(x, split, seq)
     if act == "swiglu":
         y = swiglu(x, ffn_params["w_gate"], ffn_params["w_up"],
                    ffn_params["w_down"])
@@ -300,7 +304,7 @@ def dense_ffn(x: torch.Tensor, ffn_params, act: str = "swiglu",
         u = linear(x, ffn_params["w_up"])
         h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
         y = linear(h, ffn_params["w_down"])
-    return reduce_from_model(y) if split else y
+    return leave_model(y, split, seq)
 
 
 def vocab_offset(n_local: int, vocab_size: int) -> int:

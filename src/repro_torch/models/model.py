@@ -42,7 +42,9 @@ Under a sharding_context over a ``model`` axis (tensor parallelism,
 (``transformer.tp_layouts``) and returns the rank's vocabulary slice of
 the logits; the caches prefill builds hold the rank's kv heads and SSM
 channels, and ``cache_spec(batch, max_len, local=True)`` gives their
-shapes.
+shapes.  Where the rules put ``seq`` on the ``model`` axis the residual
+runs sequence-parallel (``models/transformer.py``): the logits and the
+caches are still the whole sequence's.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params, linear
+from repro_torch.parallel.sharding import seq_group
 
 
 @dataclasses.dataclass
@@ -84,17 +87,22 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    """Token (+ vision) embedding -> (x, positions)."""
-    x = tfm.embed_tokens(params, batch["tokens"], cfg)
+    """Token (+ vision) embedding -> (x, positions, seq): positions of the
+    whole sequence, `seq` its ``sharding.seq_group`` and, where that is
+    not None, x the rank's slice of the sequence."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape[0], tokens.shape[1] + cfg.vision_tokens
+    seq = seq_group(s)
+    v = None
     if cfg.vision_tokens:
-        pe = batch["patch_embeds"].to(x.dtype)             # (B, Nv, Dv)
+        dtype = getattr(torch, cfg.dtype)
+        pe = batch["patch_embeds"].to(dtype)               # (B, Nv, Dv)
         v = linear(pe, params["proj1"])
         # jax.nn.gelu's default is the tanh approximation
-        v = F.gelu(v.float(), approximate="tanh").to(x.dtype)
+        v = F.gelu(v.float(), approximate="tanh").to(dtype)
         v = linear(v, params["proj2"])
-        x = torch.cat([v, x], dim=1)
-    b, s = x.shape[:2]
-    return x, _positions(b, s, x.device)
+    x = tfm.embed_tokens(params, tokens, cfg, seq, prefix=v)
+    return x, _positions(b, s, x.device), seq
 
 
 def _kv_cache_from_prefill(kv, positions, max_len: int, window: int):
@@ -170,23 +178,20 @@ def build_model(cfg: ModelConfig) -> Model:
         if cfg.encoder_layers:
             enc_out = tfm.encoder_forward(params, batch["frames"].to(dtype),
                                           cfg, train=True)
-            x = tfm.embed_tokens(params, batch["tokens"], cfg)
-            pos = _positions(*x.shape[:2], x.device)
+            x, pos, seq = _embed_inputs(params, batch, cfg)
             x, _ = tfm.encdec_decoder_forward(params, x, enc_out, cfg,
                                               positions=pos, train=True)
-            return {"logits": tfm.lm_logits(params, x, cfg),
+            return {"logits": tfm.lm_logits(params, x, cfg, seq),
                     "aux": torch.zeros((), dtype=torch.float32,
                                        device=x.device)}
-        x, pos = _embed_inputs(params, batch, cfg)
+        x, pos, seq = _embed_inputs(params, batch, cfg)
         h, aux, _ = tfm.decoder_forward(params, x, cfg, positions=pos,
                                         train=True)
         out = {"aux": torch.as_tensor(aux, dtype=torch.float32,
                                       device=x.device)}
-        if cfg.vision_tokens:
-            h = h[:, cfg.vision_tokens:]
-            pos = pos[:, cfg.vision_tokens:]
-        out["logits"] = tfm.lm_logits(params, h, cfg)
-        if cfg.mtp_depth:
+        out["logits"] = tfm.lm_logits(params, h, cfg, seq,
+                                      skip=cfg.vision_tokens)
+        if cfg.mtp_depth:              # no config has vision tokens too
             nxt = torch.roll(batch["tokens"], -1, dims=1)
             out["mtp_logits"] = tfm.mtp_forward(params, h, nxt, cfg,
                                                 positions=pos)
@@ -195,20 +200,19 @@ def build_model(cfg: ModelConfig) -> Model:
     def encdec_prefill(params, batch, max_len: int):
         enc_out = tfm.encoder_forward(
             params, batch["frames"].to(getattr(torch, cfg.dtype)), cfg)
-        x = tfm.embed_tokens(params, batch["tokens"], cfg)
-        pos = _positions(*x.shape[:2], x.device)
+        x, pos, seq = _embed_inputs(params, batch, cfg)
         x, (kv, cross) = tfm.encdec_decoder_forward(
             params, x, enc_out, cfg, positions=pos, need_cache=True)
         cache = {"main": {"kv": _kv_cache_from_prefill(kv, pos, max_len, 0),
                           "cross": cross}}
-        logits = tfm.lm_logits(params, x[:, -1:], cfg)
+        logits = tfm.lm_logits(params, tfm.last_hidden(x, seq), cfg)
         return logits[:, 0], cache
 
     @torch.inference_mode()
     def prefill(params, batch, max_len: int):
         if cfg.encoder_layers:
             return encdec_prefill(params, batch, max_len)
-        x, pos = _embed_inputs(params, batch, cfg)
+        x, pos, seq = _embed_inputs(params, batch, cfg)
         h, _, collected = tfm.decoder_forward(params, x, cfg, positions=pos,
                                               need_cache=True)
         if cfg.parallel_ssm:  # hybrid: per-layer caches, per-layer windows
@@ -237,7 +241,7 @@ def build_model(cfg: ModelConfig) -> Model:
                     entry["ssm"] = {n: torch.stack([st[n] for st in states])
                                     for n in ("conv", "ssm")}
                 cache[name] = entry
-        logits = tfm.lm_logits(params, h[:, -1:], cfg)
+        logits = tfm.lm_logits(params, tfm.last_hidden(h, seq), cfg)
         return logits[:, 0], cache
 
     @torch.inference_mode()

@@ -53,8 +53,9 @@ from repro_torch.models.common import ParamSpec, linear, swiglu
 from repro_torch.parallel.sharding import (MODEL_AXIS, all_to_all,
                                            axis_group, axis_sizes,
                                            batch_mean, copy_to_model,
-                                           current_context, model_group,
-                                           reduce_from_model, resolve_pspec)
+                                           current_context, enter_model,
+                                           leave_model, model_group,
+                                           resolve_pspec, split_grad)
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -91,8 +92,10 @@ def _top_k(scores: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(params, x: torch.Tensor, e: MoEConfig):
-    """x: (B, S, D) -> weights (B,S,K) fp32, idx (B,S,K) int64, aux ()."""
+def _route(params, x: torch.Tensor, e: MoEConfig, seq=None):
+    """x: (B, S, D) -> weights (B,S,K) fp32, idx (B,S,K) int64, aux ().
+    Under sequence parallelism (`seq`) `x` is the gathered sequence, and
+    every rank's aux alike: its gradient counts once over the ranks."""
     # the router product in the activation dtype, softmax/sigmoid in fp32
     logits = linear(x, params["router"]).float()
     if e.router_aux_free:
@@ -112,7 +115,8 @@ def _route(params, x: torch.Tensor, e: MoEConfig):
         # and `batch_mean` gives the global dispatch fractions; aux is
         # then linear in `me`, so the ranks' mean of their aux is the
         # global batch's
-        me = probs.mean(dim=(0, 1))                                # (E,)
+        me = (probs if seq is None else split_grad(probs, seq)).mean(
+            dim=(0, 1))                                            # (E,)
         fe = batch_mean(F.one_hot(idx[..., 0], e.num_experts).float()
                         .mean(dim=(0, 1)))
         aux = e.num_experts * torch.sum(me * fe)
@@ -214,15 +218,18 @@ def expert_plan(n_local: int, num_experts: int):
                       MODEL_AXIS in axes)
 
 
-def moe_ffn(params, x: torch.Tensor,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
+            seq=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B,S,D), aux_loss ()).  On the rank's local
-    leaves under a sharding context (module doc, `expert_plan`)."""
+    leaves under a sharding context (module doc, `expert_plan`).  Under
+    sequence parallelism (`seq`) `x` is the gathered sequence, routed
+    whole on every rank, and the output the rank's slice of the sum
+    (``sharding.leave_model``)."""
     e = cfg.moe
     b0, s0, d = x.shape
     k, ne = e.top_k, e.num_experts
 
-    w, idx, aux = _route(params, x, e)
+    w, idx, aux = _route(params, x, e, seq)
 
     plan = expert_plan(params["w_gate"].shape[-3], ne)
     group = None if plan is None else plan.group
@@ -233,8 +240,8 @@ def moe_ffn(params, x: torch.Tensor,
     shared_split = (mg is not None and e.num_shared_experts > 0 and
                     params["shared_gate"].shape[-1]
                     < e.num_shared_experts * e.expert_d_ff)
-    x_split = copy_to_model(x) if routed_split or shared_split else x
-    if routed_split:
+    x_split = enter_model(x, routed_split or shared_split, seq)
+    if routed_split and seq is None:
         w = copy_to_model(w)
 
     # decode-time regrouping: with s*k << num_experts the per-row capacity
@@ -308,12 +315,12 @@ def moe_ffn(params, x: torch.Tensor,
                              params["shared_gate"], params["shared_up"],
                              params["shared_down"]), shared_split))
     # the whole outputs in order, then the partial ones summed over the
-    # model ranks in one all-reduce
+    # model ranks in one all-reduce (or reduce-scatter)
     whole = [t for t, split in parts if not split]
     partial = [t for t, split in parts if split]
-    out = sum(whole[1:], whole[0]) if whole else None
+    out = leave_model(sum(whole[1:], whole[0]), False, seq) if whole else None
     if partial:
-        summed = reduce_from_model(sum(partial[1:], partial[0]))
+        summed = leave_model(sum(partial[1:], partial[0]), True, seq)
         out = summed if out is None else out + summed
     return out, aux
 

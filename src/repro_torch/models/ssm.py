@@ -34,6 +34,7 @@ from repro_torch.kernels.selective_scan.ops import selective_scan_op
 from repro_torch.models.common import ParamSpec, linear
 from repro_torch.parallel.sharding import (MODEL_AXIS, axis_sizes,
                                            copy_to_model, current_context,
+                                           enter_model, leave_model,
                                            model_group, model_placements,
                                            reduce_from_model)
 
@@ -216,16 +217,19 @@ def chunked_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
                   state: Optional[Dict[str, torch.Tensor]] = None,
-                  return_state: bool = False, train: bool = False):
+                  return_state: bool = False, train: bool = False,
+                  seq=None):
     """Full-sequence mamba block. x: (B,S,d). Optionally carries/returns
     state {"conv": (B,k-1,di), "ssm": (B,di,n)} for the prefill->decode
-    handoff.  `train` scans with `chunked_scan`, else with the kernel."""
+    handoff.  `train` scans with `chunked_scan`, else with the kernel.
+    Under sequence parallelism (`seq`) `x` is the gathered sequence (the
+    scan needs all of it) and the output the rank's slice; the state is
+    the whole sequence's."""
     s_cfg = cfg.ssm
     dtr = s_cfg.resolved_dt_rank(cfg.d_model)
     n = s_cfg.state_dim
     split = split_inner(params, cfg)
-    if split:
-        x = copy_to_model(x)
+    x = enter_model(x, split, seq)
 
     xi, z = linear(x, params["w_in"]).chunk(2, dim=-1)
     conv_state = state["conv"] if state is not None else None
@@ -244,9 +248,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     y, h_end = scan(xc, dt, a, b_ssm, c_ssm, params["d_skip"], h0=h0,
                     scan_dtype=s_cfg.scan_dtype)
     y = y * F.silu(z.float()).to(x.dtype)
-    out = linear(y, params["w_out"])
-    if split:
-        out = reduce_from_model(out)
+    out = leave_model(linear(y, params["w_out"]), split, seq)
     if return_state:
         return out, {"conv": new_conv.contiguous(), "ssm": h_end}
     return out

@@ -36,6 +36,16 @@ the axis) gives the whole output and adds nothing.  MLA splits its heads
 (``attention.mla_split``) and MoE its experts, or each expert's FFN
 columns where the experts do not divide the axis
 (``moe.expert_plan``); MoE's router is whole on every rank.
+
+Where the rules also put ``seq`` on that axis (sequence parallelism,
+``sharding.seq_group`` of the sequence's length), the residual between
+blocks is the rank's S/M slice: the norms and residual adds run on the
+slice, each layer gathers its normed input over the sequence once for
+its blocks (``sharding.gather_seq``) and each block's output comes back
+reduce-scattered, a whole block's by its slice
+(``sharding.leave_model``); the embedding's sum is reduce-scattered, and
+the final norm runs on the slice before the head takes the gathered
+sequence.  Whisper's encoder, whose frames no rule splits, runs whole.
 """
 from __future__ import annotations
 
@@ -52,10 +62,12 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamSpec, dense_ffn, draw_leaf,
                                        linear, rms_norm, stack_specs,
-                                       tree_map, vocab_offset)
-from repro_torch.parallel.sharding import (copy_to_model, local_index,
-                                           local_slice, model_placements,
-                                           reduce_from_model)
+                                       tree_leaves, tree_map, vocab_offset)
+from repro_torch.parallel.sharding import (enter_model, gather_seq,
+                                           local_index, local_slice,
+                                           model_placements,
+                                           reduce_from_model, scatter_seq,
+                                           seq_group, seq_slice, split_grad)
 
 Params = Dict[str, Any]
 
@@ -186,6 +198,15 @@ def tp_layouts(specs, cfg: ModelConfig, path: Tuple = ()):
     return "shard"
 
 
+def seq_whole(specs) -> List[bool]:
+    """For each leaf of `specs` (in ``tree_leaves`` order), whether the
+    model reads it on whole sequences under sequence parallelism too:
+    Whisper's encoder (``enc_layers``, ``enc_norm``), whose frames no
+    rule splits."""
+    return [key in ("enc_layers", "enc_norm") for key in sorted(specs)
+            for _ in tree_leaves(specs[key])]
+
+
 def local_leaf(x, spec: ParamSpec, layout: str, mesh, rules):
     """The rank's leaf of the whole `x` (a tensor or numpy array) in the
     tensor-parallel models, by `layout` (`tp_layouts`); no collective."""
@@ -249,18 +270,20 @@ def layer_slice(stack: Params, i: int) -> Params:
 
 
 def _ffn(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-         d_ff: Optional[int] = None):
+         d_ff: Optional[int] = None, seq=None):
     """The layer's FFN half with its residual -> (x, MoE aux loss or 0);
     a dense FFN of `d_ff` (default ``cfg.d_ff``) whose local width is
-    less is the rank's ``mlp`` shard."""
+    less is the rank's ``mlp`` shard.  Under sequence parallelism (`seq`)
+    `x` is the rank's slice: the norm runs on it, the FFN on the gathered
+    sequence."""
     if "ffn" in lp:
-        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        h2 = gather_seq(rms_norm(x, lp["norm2"], cfg.norm_eps), seq)
         split = lp["ffn"]["w_up"].shape[-1] < (d_ff or cfg.d_ff)
-        return x + dense_ffn(h2, lp["ffn"], cfg.ffn_act,
-                             split=split).to(x.dtype), 0.0
+        return x + dense_ffn(h2, lp["ffn"], cfg.ffn_act, split=split,
+                             seq=seq).to(x.dtype), 0.0
     if "moe" in lp:
-        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        y, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
+        h2 = gather_seq(rms_norm(x, lp["norm2"], cfg.norm_eps), seq)
+        y, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg, seq)
         return x + y.to(x.dtype), aux
     return x, 0.0
 
@@ -270,13 +293,18 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   train: bool = False, d_ff: Optional[int] = None):
     """Full-sequence layer.  Returns (x, MoE aux loss or 0, the attention
     cache's entries -- (k, v) for GQA, (c_kv, k_rope) for MLA -- or None,
-    ssm state or None); the caches only with `need_cache`."""
-    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    ssm state or None); the caches only with `need_cache`.  `positions`
+    are the whole sequence's; where the context runs sequence-parallel at
+    its length (``sharding.seq_group``), `x` and the result are the
+    rank's slice of the residual, and the caches the whole sequence's."""
+    seq = seq_group(positions.shape[-1])
+    # the blocks' input: the whole sequence, gathered once for them all
+    h = gather_seq(rms_norm(x, lp["norm1"], cfg.norm_eps), seq)
     cache_kv = new_ssm_state = None
     branch = 0.0
     if cfg.attention == "gqa":
         a = attn.gqa_forward(lp["attn"], h, cfg=cfg, positions=positions,
-                             window=window, train=train)
+                             window=window, train=train, seq=seq)
         if cfg.parallel_ssm:
             a = rms_norm(a, lp["attn_norm"], cfg.norm_eps)
         branch = branch + a
@@ -285,23 +313,24 @@ def layer_forward(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                            positions=positions)
     elif cfg.attention == "mla":
         a = attn.mla_forward(lp["attn"], h, cfg=cfg, positions=positions,
-                             return_cache=need_cache, train=train)
+                             return_cache=need_cache, train=train, seq=seq)
         if need_cache:
             a, cache_kv = a
         branch = branch + a
     if cfg.ssm is not None:
         if need_cache:
             s_out, new_ssm_state = ssm_mod.mamba_forward(
-                lp["ssm"], h, cfg, return_state=True)
+                lp["ssm"], h, cfg, return_state=True, seq=seq)
         else:
-            s_out = ssm_mod.mamba_forward(lp["ssm"], h, cfg, train=train)
+            s_out = ssm_mod.mamba_forward(lp["ssm"], h, cfg, train=train,
+                                          seq=seq)
         if cfg.parallel_ssm:
             s_out = rms_norm(s_out, lp["ssm_norm"], cfg.norm_eps)
             branch = 0.5 * (branch + s_out)
         else:
             branch = branch + s_out
     x = x + branch.to(x.dtype)
-    x, aux = _ffn(lp, x, cfg, d_ff)
+    x, aux = _ffn(lp, x, cfg, d_ff, seq)
     return x, aux, cache_kv, new_ssm_state
 
 
@@ -424,15 +453,17 @@ def encoder_forward(params: Params, frames: torch.Tensor, cfg: ModelConfig,
 def _encdec_layer(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
                   cfg: ModelConfig, *, positions, need_cache: bool,
                   train: bool):
-    """One Whisper decoder layer -> (x, its cache entries or None)."""
-    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    """One Whisper decoder layer -> (x, its cache entries or None); `x`
+    the rank's slice under sequence parallelism, as in `layer_forward`."""
+    seq = seq_group(positions.shape[-1])
+    h = gather_seq(rms_norm(x, lp["norm1"], cfg.norm_eps), seq)
     x = x + attn.gqa_forward(lp["attn"], h, cfg=cfg, positions=positions,
-                             window=0, train=train).to(x.dtype)
-    hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
-    ek, ev = attn.cross_kv(lp["xattn"], enc_out, cfg)
+                             window=0, train=train, seq=seq).to(x.dtype)
+    hx = gather_seq(rms_norm(x, lp["norm_x"], cfg.norm_eps), seq)
+    ek, ev = attn.cross_kv(lp["xattn"], enc_out, cfg, seq)
     x = x + attn.cross_attention(lp["xattn"], hx, ek, ev, cfg=cfg,
-                                 train=train).to(x.dtype)
-    x = _ffn(lp, x, cfg)[0]
+                                 train=train, seq=seq).to(x.dtype)
+    x = _ffn(lp, x, cfg, seq=seq)[0]
     if not need_cache:
         return x, None
     return x, (attn.gqa_prefill_kv(lp["attn"], h, cfg=cfg,
@@ -463,34 +494,65 @@ def encdec_decoder_forward(params: Params, x: torch.Tensor,
     return x, (stack(kvs), stack(crosses))
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
-    """The tokens' embeddings; from a vocab-parallel table (the rank's
-    rows), each rank looks up the tokens it holds and the ranks' lookups
-    are summed."""
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 seq=None, prefix: Optional[torch.Tensor] = None):
+    """The tokens' embeddings, after `prefix` (B, Nv, d) where given (the
+    projected patches, whole on every rank); from a vocab-parallel table
+    (the rank's rows), each rank looks up the tokens it holds and the
+    ranks' lookups are summed.  Under sequence parallelism (`seq`, the
+    ``sharding.seq_group`` of the whole length) the result is the rank's
+    slice of the sequence: the sum reduce-scattered (a whole prefix added
+    in by the first rank alone), or a whole table's lookup cut."""
     table = params["embed"]
     dtype = getattr(torch, cfg.dtype)
-    if table.shape[0] == cfg.vocab_size:
-        return table[tokens.long()].to(dtype)
-    local = tokens.long() - vocab_offset(table.shape[0], cfg.vocab_size)
-    mine = (local >= 0) & (local < table.shape[0])
-    x = table[torch.where(mine, local, 0)].to(dtype)
-    return reduce_from_model(torch.where(mine[..., None], x, 0))
+    split = table.shape[0] < cfg.vocab_size
+    if not split:
+        x = table[tokens.long()].to(dtype)
+    else:
+        local = tokens.long() - vocab_offset(table.shape[0], cfg.vocab_size)
+        mine = (local >= 0) & (local < table.shape[0])
+        x = table[torch.where(mine, local, 0)].to(dtype)
+        x = torch.where(mine[..., None], x, 0)
+    if seq is None:
+        x = reduce_from_model(x) if split else x
+        return x if prefix is None else torch.cat([prefix.to(x.dtype), x], 1)
+    if prefix is not None:
+        if split and seq.rank:
+            prefix = torch.zeros_like(prefix)
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    return scatter_seq(x, seq) if split else seq_slice(x, seq)
 
 
-def _head(params: Params, x: torch.Tensor, cfg: ModelConfig):
+def _head(params: Params, x: torch.Tensor, cfg: ModelConfig, seq=None):
     """The logits of normed `x`: the rank's vocabulary slice of them where
     the head is vocab-parallel (its input then enters through
-    ``copy_to_model``)."""
+    ``copy_to_model``).  Under sequence parallelism (`seq`) `x` is the
+    gathered sequence; a whole head then gives every rank the same
+    logits, whose gradients count once over the ranks
+    (``sharding.split_grad``)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if head.shape[-1] < cfg.vocab_size:
-        x = copy_to_model(x)
+        x = enter_model(x, True, seq)
+    elif seq is not None:
+        x, head = split_grad(x, seq), split_grad(head, seq)
     return linear(x, head)
 
 
-def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
-    """(..., V) logits, or the rank's (..., V / model) slice of them."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head(params, x, cfg)
+def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig, seq=None,
+              skip: int = 0):
+    """(..., V) logits, or the rank's (..., V / model) slice of them, of
+    the positions of `x` after its first `skip` (the vision tokens).
+    Under sequence parallelism (`seq`) `x` is the rank's slice: the final
+    norm runs on it, and the logits are the whole sequence's."""
+    x = gather_seq(rms_norm(x, params["final_norm"], cfg.norm_eps), seq)
+    return _head(params, x[:, skip:] if skip else x, cfg, seq)
+
+
+def last_hidden(h: torch.Tensor, seq=None) -> torch.Tensor:
+    """(B, 1, d): the sequence's last position of `h`, the whole sequence
+    or, under sequence parallelism (`seq`), the rank's slice of it (the
+    last rank's last row, gathered from every rank's)."""
+    return h[:, -1:] if seq is None else gather_seq(h[:, -1:], seq)[:, -1:]
 
 
 def mtp_forward(params: Params, h: torch.Tensor, tokens: torch.Tensor,
@@ -498,14 +560,16 @@ def mtp_forward(params: Params, h: torch.Tensor, tokens: torch.Tensor,
     """DeepSeek-V3 MTP (depth 1), a training path: combine the final
     hidden h_t with the embedding of token_{t+1}; the shared head then
     predicts token_{t+2}.  Its layer is not checkpointed (the JAX
-    package's is not either)."""
+    package's is not either).  Under sequence parallelism `h` is the
+    rank's slice, as the decoder leaves it."""
     mp = params["mtp"]
-    emb_next = embed_tokens(params, tokens, cfg)         # (B,S,d) of t+1
+    seq = seq_group(positions.shape[-1])
+    emb_next = embed_tokens(params, tokens, cfg, seq)    # (B,S,d) of t+1
     h_n = rms_norm(h, mp["norm_h"], cfg.norm_eps)
     e_n = rms_norm(emb_next, mp["norm_e"], cfg.norm_eps)
     z = linear(torch.cat([h_n, e_n], dim=-1), mp["proj"])
     z, _, _, _ = layer_forward(mp["layer"], z, cfg, positions=positions,
                                window=cfg.sliding_window, train=True,
                                d_ff=dense_d_ff(cfg))
-    z = rms_norm(z, mp["final_norm"], cfg.norm_eps)
-    return _head(params, z, cfg)
+    z = gather_seq(rms_norm(z, mp["final_norm"], cfg.norm_eps), seq)
+    return _head(params, z, cfg, seq)

@@ -81,27 +81,24 @@ def _moment(old, new: torch.Tensor, dtype: str, second_moment: bool):
     return old
 
 
-@torch.no_grad()
-def adamw_update(grads, opt_state: OptState, params, lr: torch.Tensor,
-                 cfg: TrainConfig, state_dtype: str = "float32",
-                 gnorm: torch.Tensor | None = None):
-    """One AdamW step.  `grads` and `params` are trees of one structure,
-    `lr` an fp32 0-d tensor (``warmup_cosine``).  `gnorm` is the global
-    gradient norm where the caller holds only shards of the leaves (a
-    sharded step), else it is computed here.  Returns (params, OptState,
-    grad_norm): the same param tensors, updated in place."""
-    count = opt_state.count + 1
-    b1, b2 = cfg.beta1, cfg.beta2
-    c1 = 1.0 - b1 ** count.float()
-    c2 = 1.0 - b2 ** count.float()
-    flat_g = tree_leaves(grads)
-    flat_p = tree_leaves(params)
-    flat_m = tree_leaves(opt_state.m, is_leaf=_is_q)
-    flat_v = tree_leaves(opt_state.v, is_leaf=_is_q)
-    if not len(flat_g) == len(flat_p) == len(flat_m) == len(flat_v):
-        raise ValueError("adamw_update: grads, params and the state's "
-                         "moments must be trees of one structure")
+class StepScalars(NamedTuple):
+    """What every leaf's update of one step shares."""
+    count: torch.Tensor       # the steps taken after this one
+    c1: torch.Tensor          # the bias corrections
+    c2: torch.Tensor
+    scale: torch.Tensor       # the global-norm clip
+    gnorm: torch.Tensor
+    lr: torch.Tensor
 
+
+def step_scalars(count: torch.Tensor, flat_g, lr: torch.Tensor,
+                 cfg: TrainConfig,
+                 gnorm: torch.Tensor | None = None) -> StepScalars:
+    """The step's `StepScalars` from the state's `count` and the gradient
+    leaves `flat_g` (their norm, where `gnorm` is not given)."""
+    count = count + 1
+    c1 = 1.0 - cfg.beta1 ** count.float()
+    c2 = 1.0 - cfg.beta2 ** count.float()
     # global-norm clip (fp32)
     if cfg.grad_clip:
         if gnorm is None:
@@ -111,18 +108,51 @@ def adamw_update(grads, opt_state: OptState, params, lr: torch.Tensor,
     else:
         gnorm = torch.zeros((), dtype=torch.float32, device=count.device)
         scale = torch.ones((), dtype=torch.float32, device=count.device)
+    return StepScalars(count, c1, c2, scale, gnorm, lr)
 
+
+@torch.no_grad()
+def adamw_leaf(g: torch.Tensor, m_q, v_q, p: torch.Tensor, k: StepScalars,
+               cfg: TrainConfig, state_dtype: str, decay: bool):
+    """One leaf's AdamW update: `p` written in place, weight-decayed where
+    `decay`; -> its new (m, v) in the state's dtype (the fp32 and bf16
+    moments written in place too)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.float() * k.scale
+    m = _load(m_q).mul_(b1).add_(g * (1 - b1))
+    v = _load(v_q).mul_(b2).add_(g.square().mul_(1 - b2))
+    new = (_moment(m_q, m, state_dtype, False),
+           _moment(v_q, v, state_dtype, True))
+    del g
+    step = (m / k.c1).div_((v / k.c2).sqrt_().add_(1e-8))
+    if cfg.weight_decay and decay:
+        step = step.add_(cfg.weight_decay * p.float())
+    p.copy_(p.float().sub_(k.lr * step))
+    return new
+
+
+@torch.no_grad()
+def adamw_update(grads, opt_state: OptState, params, lr: torch.Tensor,
+                 cfg: TrainConfig, state_dtype: str = "float32",
+                 gnorm: torch.Tensor | None = None):
+    """One AdamW step.  `grads` and `params` are trees of one structure,
+    `lr` an fp32 0-d tensor (``warmup_cosine``).  `gnorm` is the global
+    gradient norm where the caller holds only shards of the leaves (a
+    sharded step), else it is computed here.  Returns (params, OptState,
+    grad_norm): the same param tensors, updated in place."""
+    flat_g = tree_leaves(grads)
+    flat_p = tree_leaves(params)
+    flat_m = tree_leaves(opt_state.m, is_leaf=_is_q)
+    flat_v = tree_leaves(opt_state.v, is_leaf=_is_q)
+    if not len(flat_g) == len(flat_p) == len(flat_m) == len(flat_v):
+        raise ValueError("adamw_update: grads, params and the state's "
+                         "moments must be trees of one structure")
+    k = step_scalars(opt_state.count, flat_g, lr, cfg, gnorm)
     new_m, new_v = [], []
     for g, m_q, v_q, p in zip(flat_g, flat_m, flat_v, flat_p):
-        g = g.float() * scale
-        m = _load(m_q).mul_(b1).add_(g * (1 - b1))
-        v = _load(v_q).mul_(b2).add_(g.square().mul_(1 - b2))
-        new_m.append(_moment(m_q, m, state_dtype, False))
-        new_v.append(_moment(v_q, v, state_dtype, True))
-        del g
-        step = (m / c1).div_((v / c2).sqrt_().add_(1e-8))
-        if cfg.weight_decay and p.ndim >= 2:  # no decay on norms/biases
-            step = step.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float().sub_(lr * step))
+        # no decay on norms/biases
+        m, v = adamw_leaf(g, m_q, v_q, p, k, cfg, state_dtype, p.ndim >= 2)
+        new_m.append(m)
+        new_v.append(v)
     return params, OptState(tree_unflatten(params, new_m),
-                            tree_unflatten(params, new_v), count), gnorm
+                            tree_unflatten(params, new_v), k.count), k.gnorm

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,3 +99,83 @@ def dequantize_log(q: LogQTensor) -> torch.Tensor:
     logs = q.data.float() / 254 * span + q.lo
     vals = torch.where(logs <= _LOG_EPS_F32 + 1e-6, 0.0, torch.exp(logs))
     return _unblock(vals, q.shape)
+
+
+# ---------------------------------------------------------------------------
+# a sharded leaf's blocks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BlockLayout:
+    """How the blockwise state (`quantize`'s blocks of the flattened
+    leaf) of a leaf sharded over a mesh lies on its ranks.
+
+    Where each rank's shard of the leaf, under placements `cut`, is a set
+    of whole blocks of the leaf in the leaf's order, a rank quantizes
+    that shard and gets the leaf's numbers there: the data is the leaf's
+    blocks laid out as ``shape[:k] + (blocks, block)``, k the innermost
+    dim `cut` cuts, under `cut` itself.  `cut` is the leaf's own
+    placements where they allow it (the state then lies with the
+    shards), else the leaf cut on one outer dim over the same ranks (its
+    gradient and values are moved to that layout for the update, and
+    back).  A leaf cut on no dim is whole on every rank: ``(blocks,
+    block)``, replicated.  Where no dim will do (a leaf of a few blocks)
+    `cut` is None: the blocks are dealt in equal chunks to the ranks that
+    shard the leaf, ``(chunk * ranks, block)`` cut on dim 0 (zero blocks
+    past the leaf's end), and a rank updates its chunk from the leaf's
+    whole gradient and values (``train/steps.py``)."""
+    data_shape: Tuple[int, ...]
+    placements: tuple
+    cut: Optional[tuple]
+
+    @property
+    def scale_shape(self) -> Tuple[int, ...]:
+        return self.data_shape[:-1] + (1,)
+
+
+def block_layout(shape, mesh, place, block_size: int = 256) -> BlockLayout:
+    """The `BlockLayout` of a leaf of `shape` held under the DTensor
+    placements `place` on `mesh`."""
+    from torch.distributed.tensor import Replicate, Shard
+    numel = math.prod(shape)
+    size = tuple(mesh.shape)            # a DeviceMesh's or an abstract one's
+    cuts = [(m, p.dim) for m, p in enumerate(place) if isinstance(p, Shard)]
+    if not cuts:
+        return BlockLayout((-(-numel // block_size), block_size),
+                           tuple(place), tuple(place))
+
+    def blocked(k: int, cut: tuple) -> BlockLayout:
+        return BlockLayout(tuple(shape[:k]) + (
+            math.prod(shape[k:]) // block_size, block_size), cut, cut)
+
+    k = max(d for _, d in cuts)
+    parts = math.prod(size[m] for m, d in cuts if d == k)
+    if shape[k] // parts * math.prod(shape[k + 1:]) % block_size == 0:
+        return blocked(k, tuple(place))
+    ranks = math.prod(size[m] for m, _ in cuts)
+    on = lambda dim: tuple(Shard(dim) if isinstance(p, Shard)
+                           else Replicate() for p in place)
+    for j, n in enumerate(shape):
+        if n % ranks == 0 and (n // ranks * math.prod(shape[j + 1:])
+                               % block_size == 0):
+            return blocked(j, on(j))
+    chunk = -(-numel // (block_size * ranks))
+    return BlockLayout((chunk * ranks, block_size), on(0), None)
+
+
+def fit_blocks(x, shape: Tuple[int, ...]):
+    """`x` (a tensor or numpy array of blocks, in the flattened leaf's
+    order) laid out as `shape`: its rows of ``shape[-1]`` cut or padded
+    with zero rows (the blocks past a leaf's end hold nothing)."""
+    shape = tuple(shape)
+    if tuple(x.shape) == shape:
+        return x
+    rows = x.reshape(-1, shape[-1])
+    want = math.prod(shape[:-1])
+    if rows.shape[0] >= want:
+        return rows[:want].reshape(shape)
+    if isinstance(x, np.ndarray):
+        pad = np.zeros((want - rows.shape[0], shape[-1]), dtype=x.dtype)
+        return np.concatenate([rows, pad]).reshape(shape)
+    return torch.cat([rows, rows.new_zeros(
+        (want - rows.shape[0], shape[-1]))]).reshape(shape)

@@ -89,9 +89,13 @@ class PartitionSpec(tuple):
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """Where a tensor lives: a mesh and one placement per mesh dim (a
-    leaf, not a node, of the port's trees)."""
+    leaf, not a node, of the port's trees); `shape`, where given, the
+    global shape it is placed at when that is not the shape of the whole
+    tensor handed to it (a blockwise state's blocks,
+    ``optim.quant.block_layout``)."""
     mesh: object
     placements: tuple
+    shape: Optional[Tuple[int, ...]] = None
 
 
 def _as_tuple(axes: MeshAxes) -> Tuple[str, ...]:
@@ -266,7 +270,13 @@ def with_logical_constraint(x: torch.Tensor, *logical_dims: Optional[str]):
       ``expert_mlp`` columns; where the rules also put ``expert`` on a
       batch axis (EP-2D) the buffer goes to the experts' holders and
       back by `all_to_all` over that axis; the routed and shared
-      experts' partial sums are all-reduced once.
+      experts' partial sums are all-reduced once;
+    - the residual to ``("batch", "seq", "act_embed")`` where the rules
+      put ``seq`` on ``model`` (`seq_group`): the residual is the rank's
+      sequence slice, gathered into each block (`gather_seq`) and
+      reduce-scattered out of it (`scatter_seq`), Megatron-SP's pair in
+      place of `copy_to_model`/`reduce_from_model` (`enter_model`,
+      `leave_model`).
     """
     from torch.distributed.tensor import DTensor
     ctx = current_context()
@@ -391,6 +401,137 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return x if mg is None else _ReduceFromModel.apply(x, mg.group)
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism over the "model" axis (the rule ("seq", "model"))
+# ---------------------------------------------------------------------------
+
+def seq_group(seq_len: int) -> Optional[ModelGroup]:
+    """The ``model`` axis (`model_group`) where the current context runs
+    sequence-parallel at `seq_len`: its rules resolve a residual
+    ``("batch", "seq", "act_embed")`` of that length with ``model`` on the
+    sequence (the batch and width taken as dividing every axis); else
+    None: the default rules leave ``seq`` whole, a length the axis does
+    not divide is dropped (decode's S=1 among them), and so is a model
+    axis of 1."""
+    mg = model_group()
+    if mg is None:
+        return None
+    ctx = current_context()
+    n = ctx.mesh.size()
+    spec = resolve_pspec(("batch", "seq", "act_embed"), (n, seq_len, n),
+                         ctx.mesh, ctx.rules)
+    return mg if len(spec) > 1 and MODEL_AXIS in _as_tuple(spec[1]) else None
+
+
+def _gather_seq(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """The ranks' dim-1 slices of `x` laid end to end, in rank order."""
+    import torch.distributed as dist
+    xt = x.movedim(1, 0).contiguous()
+    out = xt.new_empty((mg.size * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=mg.group)
+    return out.movedim(0, 1).contiguous()
+
+
+def _scatter_seq(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """The rank's dim-1 slice of the sum over the ranks of `x`."""
+    import torch.distributed as dist
+    xt = x.movedim(1, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // mg.size,) + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=mg.group)
+    return out.movedim(0, 1).contiguous()
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather over the sequence forward, reduce-scatter of the
+    gradient backward: a residual slice entering a block (Megatron-SP's
+    g)."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return _gather_seq(x, mg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_seq(grad, ctx.mg), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter over the sequence forward, all-gather of the
+    gradient backward: a split block's partial sums leaving for the
+    residual (Megatron-SP's g-bar)."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return _scatter_seq(x, mg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_seq(grad, ctx.mg), None
+
+
+class _SplitGrad(torch.autograd.Function):
+    """Identity forward; the gradient divided by the ranks backward."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.size, None
+
+
+def gather_seq(x: torch.Tensor, seq: Optional[ModelGroup]) -> torch.Tensor:
+    """The whole sequence (dim 1) from the ranks' slices `x`; its gradient
+    is summed over the ranks and cut back to the slice, so what consumes
+    the whole sequence gives each rank's part of it.  `x` itself where
+    `seq` (`seq_group`) is None."""
+    return x if seq is None else _GatherSeq.apply(x, seq)
+
+
+def scatter_seq(x: torch.Tensor, seq: Optional[ModelGroup]) -> torch.Tensor:
+    """The rank's sequence slice of the sum over the ranks of `x`; `x`
+    itself where `seq` is None."""
+    return x if seq is None else _ScatterSeq.apply(x, seq)
+
+
+def seq_slice(x: torch.Tensor, seq: ModelGroup) -> torch.Tensor:
+    """The rank's sequence slice of `x`, alike on every rank (no
+    collective: its gradient is the slice's, zero elsewhere)."""
+    n = x.shape[1] // seq.size
+    return x[:, seq.rank * n:(seq.rank + 1) * n]
+
+
+def split_grad(x: torch.Tensor, seq: ModelGroup) -> torch.Tensor:
+    """`x`, computed alike on every rank from the gathered sequence, whose
+    gradient then counts once over the ranks' summed parts."""
+    return _SplitGrad.apply(x, seq.size)
+
+
+def enter_model(x: torch.Tensor, split: bool,
+                seq: Optional[ModelGroup]) -> torch.Tensor:
+    """A block's input: `copy_to_model` where the block is split over the
+    ``model`` axis (Megatron's f).  Under sequence parallelism (`seq`)
+    `x` is the gathered sequence (`gather_seq`), whose backward already
+    sums the ranks' parts: nothing is added."""
+    return copy_to_model(x) if split and seq is None else x
+
+
+def leave_model(y: torch.Tensor, split: bool,
+                seq: Optional[ModelGroup]) -> torch.Tensor:
+    """A block's output on its way to the residual: a split block's
+    partial sums added over the ``model`` ranks (`reduce_from_model`),
+    or, under sequence parallelism, reduce-scattered over the sequence
+    (`scatter_seq`); a block whole on every rank gives its output, or
+    under sequence parallelism the rank's slice of it (`seq_slice`)."""
+    if seq is not None:
+        return scatter_seq(y, seq) if split else seq_slice(y, seq)
+    return reduce_from_model(y) if split else y
+
+
 class _AllToAll(torch.autograd.Function):
     """`all_to_all`: its backward is the reverse exchange, the same
     exchange of equal chunks on the gradient."""
@@ -499,6 +640,12 @@ def local_index(shape: Sequence[int], mesh, place: Sequence) -> tuple:
         start = (index[d].start or 0) + coord[m] * lengths[d]
         index[d] = slice(start, start + lengths[d])
     return tuple(index)
+
+
+def shard_shape(shape: Sequence[int], mesh, place: Sequence) -> tuple:
+    """The shape of the calling rank's shard (`local_index`)."""
+    return tuple(len(range(*sl.indices(n)))
+                 for sl, n in zip(local_index(shape, mesh, place), shape))
 
 
 def local_slice(x, mesh, place: Sequence):

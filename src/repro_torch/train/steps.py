@@ -41,15 +41,19 @@ from repro_torch.models.common import (cross_entropy_loss, tree_leaves,
 from repro_torch.models.model import Model
 from repro_torch.models.ssm import (paired_columns, paired_split,
                                    unpaired_columns)
-from repro_torch.models.transformer import tp_layouts
-from repro_torch.optim.adamw import OptState, adamw_init, adamw_update
+from repro_torch.models.transformer import seq_whole, tp_layouts
+from repro_torch.optim.adamw import (OptState, adamw_init, adamw_leaf,
+                                     adamw_update, step_scalars)
+from repro_torch.optim.quant import (LogQTensor, QTensor, block_layout,
+                                     fit_blocks, quantize, quantize_log)
 from repro_torch.optim.schedules import warmup_cosine
-from repro_torch.parallel.sharding import (AxisRules, batch_dims,
-                                           from_local, local_index,
-                                           local_slice, mesh_device,
-                                           named_sharding, owned, placements,
-                                           resolve_pspec, shard_tensor,
-                                           sharding_context)
+from repro_torch.parallel.sharding import (AxisRules, NamedSharding,
+                                           batch_dims, from_local,
+                                           local_index, local_slice,
+                                           mesh_device, named_sharding,
+                                           owned, placements, resolve_pspec,
+                                           seq_group, shard_shape,
+                                           shard_tensor, sharding_context)
 
 MOE_AUX_COEF = 0.01
 MTP_COEF = 0.3
@@ -157,21 +161,41 @@ def make_train_step(model: Model, pcfg: ParallelConfig, tcfg: TrainConfig):
 # ---------------------------------------------------------------------------
 
 def train_state_shardings(model: Model, mesh,
-                          rules: Optional[AxisRules] = None) -> TrainState:
+                          rules: Optional[AxisRules] = None,
+                          opt_state_dtype: str = "float32") -> TrainState:
     """A TrainState-shaped tree of NamedSharding: each param's, from the
     rules, and the same for its AdamW moments; None for the step count
-    (a plain tensor on every rank)."""
+    (a plain tensor on every rank).  An int8 moment is a QTensor (m) or
+    LogQTensor (v) of NamedShardings, its blocks laid out by
+    ``quant.block_layout`` (their ``shape`` the layout's)."""
     rules = rules or AxisRules()
     sh = tree_map(lambda s: named_sharding(s.logical, s.shape, mesh, rules),
                   model.specs)
-    return TrainState(sh, OptState(sh, sh, None))
+    if opt_state_dtype != "int8":
+        return TrainState(sh, OptState(sh, sh, None))
+    pairs = [(spec.shape, block_layout(spec.shape, mesh, ns.placements))
+             for spec, ns in zip(tree_leaves(model.specs), tree_leaves(sh))]
+    at = lambda lay, shape: NamedSharding(mesh, lay.placements, shape)
+    m = [QTensor(at(lay, lay.data_shape), at(lay, lay.scale_shape), shape)
+         for shape, lay in pairs]
+    v = [LogQTensor(at(lay, lay.data_shape), at(lay, lay.scale_shape),
+                    at(lay, lay.scale_shape), shape) for shape, lay in pairs]
+    return TrainState(sh, OptState(tree_unflatten(model.specs, m),
+                                   tree_unflatten(model.specs, v), None))
 
 
 def shard_train_state(state: TrainState, shardings: TrainState) -> TrainState:
     """A whole TrainState (every rank holding the same one) as DTensors
-    on `shardings`; each rank keeps its own slice, so nothing is sent."""
+    on `shardings`; each rank keeps its own slice, so nothing is sent (an
+    int8 moment's blocks laid out first, ``quant.fit_blocks``)."""
+    def place(x, sh):
+        if sh is None:
+            return x
+        if sh.shape is not None:
+            x = fit_blocks(x, sh.shape)
+        return shard_tensor(x, sh.mesh, sh.placements)
     return tree_unflatten(state, [
-        x if sh is None else shard_tensor(x, sh.mesh, sh.placements)
+        place(x, sh)
         for x, sh in zip(tree_leaves(state), tree_leaves(shardings))])
 
 
@@ -184,19 +208,44 @@ def init_sharded_train_state(model: Model, generator: torch.Generator,
     `generator`) and zero moments of its shards' shapes, so a state no
     card holds whole can be set up.  No collective."""
     from repro_torch.models.common import draw_leaf, leaf_seed
-    shardings = train_state_shardings(model, mesh, rules)
+    shardings = train_state_shardings(model, mesh, rules,
+                                      pcfg.opt_state_dtype)
     dev = mesh_device(mesh)
     specs = tree_leaves(model.specs)
     places = [sh.placements for sh in tree_leaves(shardings.params)]
     local = [draw_leaf(spec, leaf_seed(generator), dev,
                        index=local_index(spec.shape, mesh, place))
              for spec, place in zip(specs, places)]
-    opt = adamw_init(local, pcfg.opt_state_dtype)
     wrap = lambda ts: tree_unflatten(model.specs, [
         from_local(t, mesh, place, spec.shape)
         for t, place, spec in zip(ts, places, specs)])
+    if pcfg.opt_state_dtype == "int8":
+        q = lambda tree: tree_map(lambda sh: zero_moment(sh, dev), tree,
+                                  is_leaf=_is_q)
+        return TrainState(wrap(local), OptState(
+            q(shardings.opt_state.m), q(shardings.opt_state.v),
+            torch.zeros((), dtype=torch.int32, device=dev)))
+    opt = adamw_init(local, pcfg.opt_state_dtype)
     return TrainState(wrap(local), OptState(wrap(opt.m), wrap(opt.v),
                                             opt.count))
+
+
+def _is_q(x) -> bool:
+    return isinstance(x, (QTensor, LogQTensor))
+
+
+def zero_moment(q_sh, device):
+    """One rank's int8 moment of zero, as ``quantize``/``quantize_log``
+    give it, on `q_sh` (a QTensor or LogQTensor of NamedShardings,
+    `train_state_shardings`)."""
+    shs = q_sh.tree_flatten()[0]
+    local = [shard_shape(sh.shape, sh.mesh, sh.placements) for sh in shs]
+    zero = torch.zeros(math.prod(local[0]), dtype=torch.float32,
+                       device=device)
+    q = (quantize if isinstance(q_sh, QTensor) else quantize_log)(zero)
+    return type(q_sh).tree_unflatten(q_sh.shape, [
+        from_local(t.reshape(shape), sh.mesh, sh.placements, sh.shape)
+        for t, shape, sh in zip(q.tree_flatten()[0], local, shs)])
 
 
 def gather_state(state):
@@ -236,15 +285,27 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
     shard it, so a replicated leaf counts once.  At one rank, and over a
     ``model`` axis of 1, the step computes what ``make_train_step``
     computes, bit for bit.
+
+    Where the rules put ``seq`` on the ``model`` axis at the batch's
+    length (``sharding.seq_group``), the model runs sequence-parallel
+    (``models/transformer.py``): the ranks of the ``model`` axis hold
+    different slices of the residual, so a leaf whole on them (its
+    ``model`` placement replicated, or a "whole" one), but for the
+    encoder's, which runs on whole frames (``transformer.seq_whole``),
+    has a partial gradient on each, summed over them.  The batch is cut
+    over the batch axes only: the logits are the whole sequence's
+    (``transformer.lm_logits``).
+
+    int8 AdamW state (``pcfg.opt_state_dtype``) is the unsharded step's,
+    block for block: its blocks run over the flattened whole leaf, laid
+    out by ``quant.block_layout`` (`train_state_shardings`) and updated
+    by `int8_adamw`; no rank holds the whole state of a leaf the rules
+    cut.
     """
     import torch.distributed as dist
     from torch.distributed.tensor import Partial, Replicate, Shard
     rules = rules or AxisRules()
-    if pcfg.opt_state_dtype == "int8":
-        raise ValueError("make_sharded_train_step: int8 AdamW state is "
-                         "blockwise over the flattened leaf; a shard's "
-                         "blocks are not the leaf's (use float32 or "
-                         "bfloat16)")
+    int8 = pcfg.opt_state_dtype == "int8"
     bdims = batch_dims(mesh, rules)
     n_batch = math.prod(mesh.size(m) for m in bdims)
     groups = {m: mesh.get_group(m) for m in range(mesh.ndim)
@@ -271,6 +332,14 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
                                   tree_leaves(model.specs))]
     edims = [s.logical.index("expert") if k == "held" else None
              for s, k in zip(tree_leaves(model.specs), kinds)]
+    # the leaves whole on the model ranks that read sequence slices
+    whole_on_model = [
+        not whole and mdim is not None and (kind == "whole" or (
+            kind == "shard" and not isinstance(named_sharding(
+                spec.logical, spec.shape, mesh, rules).placements[mdim],
+                Shard)))
+        for kind, whole, spec in zip(kinds, seq_whole(model.specs),
+                                     tree_leaves(model.specs))]
 
     def kept(pl, m, edim) -> bool:
         """Whether the rank keeps its shard on mesh dim `m`: the model
@@ -290,15 +359,17 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
                                   mesh.get_local_rank("model"))
         return whole
 
-    def grad_src(p, kind, edim, g):
+    def grad_src(p, kind, edim, g, partial_on_model):
         """(the rank's gradient, its placements: partial sums over the
-        batch dims but a held leaf's expert dims and, for a cut leaf,
-        the model dim)."""
+        batch dims but a held leaf's expert dims and, for a cut leaf or
+        one `partial_on_model`, the model dim)."""
         if kind == "cut":
             g = unpaired_columns(g, p.shape[-1], mesh.size(mdim),
                                  mesh.get_local_rank("model"))
         on_model = {"cut": Partial(), "whole": Replicate()}.get(
             kind, None if mdim is None else p.placements[mdim])
+        if partial_on_model:
+            on_model = Partial()
         src = [p.placements[m] if m in bdims and kept(p.placements[m], m,
                                                        edim)
                else Partial() if m in bdims else on_model if m == mdim
@@ -313,7 +384,8 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
         n = pcfg.microbatches
         b, s = batch["tokens"].shape
         shape = ShapeConfig("train", s + cfg.vision_tokens, b // n, "train")
-        _, ps = batch_specs(cfg, shape, mesh, rules)
+        _, ps = batch_specs(cfg, shape, mesh, AxisRules(
+            tuple(r for r in rules.rules if r[0] == "batch")))
         out = {}
         for k, t in batch.items():
             place = placements(ps[k], mesh)
@@ -331,6 +403,8 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
         # checkpointed layers' recomputation then sees the context too
         with sharding_context(mesh, rules), \
                 torch.autograd.set_multithreading_enabled(False):
+            sp = seq_group(batch["tokens"].shape[1]
+                           + cfg.vision_tokens) is not None
             metrics, grads = _accumulate(model, params, local_batch(batch),
                                          pcfg, tcfg)
         del params
@@ -343,7 +417,8 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
                 grads[i] = None            # one fp32 leaf at a time
                 if n_batch > 1:
                     g = g / n_batch
-                g, src = grad_src(p, kinds[i], edims[i], g)
+                g, src = grad_src(p, kinds[i], edims[i], g,
+                                  sp and whole_on_model[i])
                 local.append(from_partial(g, mesh, src, p.placements))
                 del g
             keys = sorted(metrics)
@@ -370,18 +445,84 @@ def make_sharded_train_step(model: Model, pcfg: ParallelConfig,
         with record_function("optimizer"):
             lr = warmup_cosine(state.opt_state.count, tcfg)
             loc = lambda tree: tree_map(lambda t: t.to_local(), tree)
-            _, new_opt, gnorm = adamw_update(
-                tree_unflatten(state.params, local),
-                OptState(loc(state.opt_state.m), loc(state.opt_state.v),
-                         state.opt_state.count),
-                loc(state.params), lr, tcfg,
-                state_dtype=pcfg.opt_state_dtype, gnorm=gnorm)
+            if int8:
+                count, gnorm = int8_adamw(local, state, lr, tcfg, gnorm)
+            else:
+                _, new_opt, gnorm = adamw_update(
+                    tree_unflatten(state.params, local),
+                    OptState(loc(state.opt_state.m), loc(state.opt_state.v),
+                             state.opt_state.count),
+                    loc(state.params), lr, tcfg,
+                    state_dtype=pcfg.opt_state_dtype, gnorm=gnorm)
+                count = new_opt.count
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
         return TrainState(state.params, OptState(
-            state.opt_state.m, state.opt_state.v, new_opt.count)), metrics
+            state.opt_state.m, state.opt_state.v, count)), metrics
 
     return train_step
+
+
+@torch.no_grad()
+def int8_adamw(grads: list, state: TrainState, lr: torch.Tensor,
+               tcfg: TrainConfig, gnorm: Optional[torch.Tensor] = None):
+    """AdamW on a sharded state's int8 moments (`train_state_shardings`):
+    `grads` the rank's gradient shard of each param leaf (its placements'),
+    `gnorm` their global norm.  Each param shard and each moment's blocks
+    are written in place, with the numbers ``adamw_update`` gives the
+    whole state (``quant.block_layout``: a rank whose shard is whole
+    blocks updates them; another updates its chunk of the leaf's blocks
+    from the leaf's gathered gradient and values, and the ranks' chunks
+    of the updated values are gathered) -> (count, grad norm)."""
+    k = step_scalars(state.opt_state.count, grads, lr, tcfg, gnorm)
+    shards = tree_leaves(state.params)
+    ms = tree_leaves(state.opt_state.m, is_leaf=_is_q)
+    vs = tree_leaves(state.opt_state.v, is_leaf=_is_q)
+    for g, p, m_q, v_q in zip(grads, shards, ms, vs):
+        mesh = p.device_mesh
+        lay = block_layout(p.shape, mesh, p.placements)
+        held = [[t.to_local() for t in q.tree_flatten()[0]]
+                for q in (m_q, v_q)]
+        flat = [[t.reshape(-1, t.shape[-1]) for t in ts] for ts in held]
+        as_q = lambda q, ts, shape: type(q).tree_unflatten(shape, ts)
+        decay = len(p.shape) >= 2          # no decay on norms/biases
+        if lay.cut is not None:
+            # the rank's blocks: its shard, or the leaf's moved to `cut`
+            moved = tuple(lay.cut) != tuple(p.placements)
+            g_in = (from_local(g, mesh, p.placements, p.shape).redistribute(
+                mesh, lay.cut).to_local() if moved else g)
+            p_in = (p.redistribute(mesh, lay.cut).to_local() if moved
+                    else p.to_local())
+            shape = tuple(p_in.shape)
+            new = adamw_leaf(g_in, as_q(m_q, flat[0], shape),
+                             as_q(v_q, flat[1], shape), p_in, k, tcfg,
+                             "int8", decay)
+            if moved:
+                p.to_local().copy_(from_local(p_in, mesh, lay.cut, p.shape)
+                                   .redistribute(mesh, p.placements)
+                                   .to_local())
+        else:
+            # the rank's chunk of the leaf's blocks, from the leaf's
+            # whole gradient and values
+            rows = local_index(lay.data_shape, mesh, lay.placements)[0]
+            cut = lambda t: torch.nn.functional.pad(t.reshape(-1), (
+                0, math.prod(lay.data_shape) - t.numel())).view(
+                lay.data_shape)[rows].reshape(-1)
+            chunk = cut(p.full_tensor()).clone()
+            n = chunk.numel()
+            new = adamw_leaf(
+                cut(from_local(g, mesh, p.placements, p.shape).full_tensor()),
+                as_q(m_q, flat[0], (n,)), as_q(v_q, flat[1], (n,)), chunk, k,
+                tcfg, "int8", decay)
+            whole = from_local(chunk.reshape(-1, lay.data_shape[-1]), mesh,
+                               lay.placements, lay.data_shape).full_tensor()
+            p.to_local().copy_(local_slice(
+                whole.reshape(-1)[:p.numel()].reshape(p.shape), mesh,
+                p.placements))
+        for ts, q in zip(held, new):
+            for t, fresh in zip(ts, q.tree_flatten()[0]):
+                t.copy_(fresh.reshape(t.shape))
+    return k.count, k.gnorm
 
 
 def from_partial(g: torch.Tensor, mesh, src: list, dst) -> torch.Tensor:

@@ -48,9 +48,9 @@ CASES = [("deepseek_v3_671b", (2, 2), "default"),
 # MTP layer's); there even the unsharded port step misses the JAX step's
 # params at these tolerances, on 1 of 1,179,648 elements of the MTP
 # layer's ``w_down`` (2.2e-6: AdamW's first update of a near-zero
-# gradient is about its sign, which the order of a sum decides;
-# tests/_dense_width_probe.py prints it), so it is cut to the reduced
-# width of every other FFN here
+# gradient is about its sign, which the order of a float32 sum decides;
+# in float64 the two steps agree to 2e-15, tests/_dense_width_probe.py),
+# so it is cut to the reduced width of every other FFN here
 MOE = {"mixtral_8x22b:e2": {"num_experts": 2},
        "deepseek_v3_671b": {"first_dense_d_ff": 128}}
 

@@ -274,12 +274,33 @@ def test_param_batch_and_cache_specs_match_the_reference(arch):
 
 
 def test_sharded_step_refuses_int8_state():
+    """The sharded step takes int8 AdamW state now (it refused it before
+    the blocks were laid out over the ranks, ``quant.block_layout``):
+    every leaf of Llama-3.2-1B that the rules cut has its blocks cut over
+    as many ranks.  On (2, 2) each rank's shard is whole blocks of the
+    leaf (updated where it lies); on (1, 4) the kv projections' shards
+    (2 heads of 64) are not, and their blocks lie cut on an outer dim."""
+    import math
+    from torch.distributed.tensor import Shard
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ParallelConfig, TrainConfig, reduced
     from repro_torch.models.model import build_model
-    from repro_torch.train.steps import make_sharded_train_step
-    model = build_model(reduced(get_config("llama3_2_1b")))
-    with pytest.raises(ValueError, match="int8"):
-        make_sharded_train_step(model, ParallelConfig(opt_state_dtype="int8"),
-                                TrainConfig(),
-                                make_abstract_mesh((2, 2), ("data", "model")))
+    from repro_torch.optim.quant import block_layout
+    from repro_torch.parallel.sharding import AxisRules, named_sharding
+    from repro_torch.serving.engine import flatten_params
+    model = build_model(get_config("llama3_2_1b"))
+    for shape, moved in (((2, 2), set()),
+                         ((1, 4), {"layers/attn/wk", "layers/attn/wv"})):
+        mesh = make_abstract_mesh(shape, ("data", "model"))
+        got = set()
+        for path, spec in flatten_params(model.specs):
+            place = named_sharding(spec.logical, spec.shape, mesh,
+                                   AxisRules()).placements
+            lay = block_layout(spec.shape, mesh, place)
+            ranks = lambda pl: math.prod(n for n, p in zip(mesh.shape, pl)
+                                         if isinstance(p, Shard))
+            assert ranks(lay.placements) == ranks(place), (path, shape)
+            assert lay.cut is not None, (path, shape)
+            assert math.prod(lay.data_shape) == math.prod(spec.shape)
+            if lay.cut != tuple(place):
+                got.add("/".join(path))
+        assert got == moved, (shape, got)
