@@ -28,8 +28,9 @@ kernels' launch counts set to 0 just before and read just after:
 - serving Llama-3.2-1B over a one-rank (1, 1) NCCL pilot mesh (the
   multi-device pilot's path: a DeviceMesh over the process group, the
   engine's rank-0 admission broadcasts, prefill and decode under the
-  mesh's sharding context), token for token the tokens of the serving
-  phase above on the same params;
+  sharding context of the mesh's model sub-mesh; a batch dim of 1 splits
+  no rows), token for token the tokens of the serving phase above on the
+  same params;
 - serving Llama-3.2-1B elastically: a burst of 32 requests on one pilot
   of a supervised, autoscaled session (at most 3 pilots on the card); the
   autoscaler scales out on the queue wait, the engine adopts each new
@@ -96,13 +97,17 @@ kernels' launch counts set to 0 just before and read just after:
   ``runtime.fault_tolerance.ResilientRunner``, 12 steps on a simulated
   pilot lost after 7 (one recovery from the step-4 checkpoint), held to
   an uninterrupted run; no kernel.
+- the ported examples (last): each ``examples/torch/*.py`` at its
+  defaults on the card, in a process of its own, all started together;
+  each must exit 0 having printed its closing line.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without CUDA or outside a checkout of the
 repository.  It imports nothing of JAX or of the JAX package.
 
 Output: progress lines, then the card's name and power limit, a
-``{"rank_split": {...}}`` line, a ``{"training": {...}}`` line, an
+``{"rank_split": {...}}`` line, an ``{"examples": {...}}`` line, a
+``{"training": {...}}`` line, an
 ``{"elastic": {...}}`` line, a ``{"kernels": [...]}`` line, and as the
 last line
 ``{"ok": true, "device": {...}}``.
@@ -2998,6 +3003,52 @@ def resilient_training_phase(torch, kernels: dict) -> dict:
     return row
 
 
+# -- the ported examples, on the card ----------------------------------------
+# each examples/torch/*.py at its defaults (the card, serve_lm and train_lm
+# at --preset smoke), all started together: each must exit 0 and print the
+# line that closes its run (its own checks passed); their last lines are
+# its key numbers
+EXAMPLE_MARKS = {"quickstart": "quickstart OK",
+                 "kmeans_pilot": "tier=device",
+                 "multipilot_scaling":
+                 "replica read after invalidation is coherent",
+                 "elastic_failover": "elastic failover OK",
+                 "serve_lm": "[serve]",
+                 "train_lm": "[train] done"}
+EXAMPLE_TIMEOUT_S = 300
+
+
+def examples_phase() -> dict:
+    """Run every ported example in its own process on the card (at once,
+    one thread waiting on each); a failed example, or one that does not
+    print its closing line, fails the phase.  Returns each one's exit
+    code, seconds and last lines."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def run(name):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py")],
+            capture_output=True, text=True, env=env, cwd=ROOT,
+            timeout=EXAMPLE_TIMEOUT_S)
+        return name, res, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(EXAMPLE_MARKS)) as pool:
+        done = list(pool.map(run, EXAMPLE_MARKS))
+    out = {}
+    for name, res, secs in done:
+        lines = res.stdout.strip().splitlines()
+        out[name] = {"rc": res.returncode, "seconds": secs,
+                     "lines": [ln[:400] for ln in lines[-4:]]}
+        log(f"example {name}: exit {res.returncode} in {secs:.3f} s; "
+            + " | ".join(out[name]["lines"]))
+        assert res.returncode == 0, (
+            f"example {name} exited {res.returncode}:\n{res.stderr[-3000:]}")
+        assert any(EXAMPLE_MARKS[name] in ln for ln in lines), (
+            f"example {name} did not print {EXAMPLE_MARKS[name]!r}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3160,7 +3211,25 @@ def main() -> int:
         # Mixtral-8x22B's 12 of 48 q and 2 of 8 kv heads, its rolling
         # 4096-slot window, rows past it
         ("mixtral decode, (1, 4) rank", 8, 4096, 12, 2, 128, bf16, 4096,
-         {"first": 4608})]
+         {"first": 4608}),
+        # Yi-9B (32 q and 4 kv heads of 128) serving 1024-2048-token
+        # prompts from an 8192-slot cache at batch 8: one card's rows, and
+        # a rank's over four cards, the batch split over (4, 1) (2 rows),
+        # split and heads halved over (2, 2), heads quartered over (1, 4)
+        ("yi-9b decode, one card", 8, 8192, 32, 4, 128, bf16, 0,
+         {"fill": 0.25}),
+        ("yi-9b decode, (4, 1) rank", 2, 8192, 32, 4, 128, bf16, 0,
+         {"fill": 0.25}),
+        ("yi-9b decode, (2, 2) rank", 4, 8192, 16, 2, 128, bf16, 0,
+         {"fill": 0.25}),
+        ("yi-9b decode, (1, 4) rank", 8, 8192, 8, 1, 128, bf16, 0,
+         {"fill": 0.25}),
+        # Llama-3.2-1B's rank over (2, 2): 16 of 32 q and 4 of 8 kv heads,
+        # 8 rows, and the 16 rows of a batch of 32
+        ("llama decode, (2, 2) rank", 8, 1024, 16, 4, 64, bf16, 0,
+         {"fill": 0.25}),
+        ("llama decode, (2, 2) rank, batch 32", 16, 1024, 16, 4, 64, bf16,
+         0, {"fill": 0.25})]
     attn_rows = [check_attention(torch, decode_attention_op,
                                  decode_attention_ref, name, b, sc, nq, nkv,
                                  h, dt, window=w, **kind)
@@ -3183,7 +3252,10 @@ def main() -> int:
         ("llama wave, (1, 4) rank", 8, 128, 8, 2, 64, bf16, 0),
         ("deepseek-67b wave, (1, 4) rank", 8, 512, 16, 2, 128, bf16, 0),
         ("deepseek-67b refill, (1, 4) rank", 1, 1024, 16, 2, 128, bf16, 0),
-        ("mixtral refill, (1, 4) rank", 1, 4608, 12, 2, 128, bf16, 4096)]
+        ("mixtral refill, (1, 4) rank", 1, 4608, 12, 2, 128, bf16, 4096),
+        # Yi-9B's refill of a 2048-token prompt, on the rank that owns the
+        # row (heads whole: one card, or (4, 1))
+        ("yi-9b refill", 1, 2048, 32, 4, 128, bf16, 0)]
     flash_rows = [check_flash(torch, flash_attention_op, *shape)
                   for shape in flash_shapes]
     # Whisper's non-causal shapes (8/8 heads of 64, 1500 frames): the
@@ -3425,6 +3497,11 @@ def main() -> int:
         f"{min(dstep['step_ms']):.4f} ms (min of {len(dstep['step_ms'])}); "
         f"serving {per_step:.4f} ms per step, refills included")
 
+    # -- 11b. the ported examples, each in its own process ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = examples_phase()
+
     # -- 12. the kernels line ----------------------------------------------
     head = rows[len(rows) - len(PAPER_SCENARIOS)]      # scenario i partition
     ahead = attn_rows[1]                                # the serving shape
@@ -3456,6 +3533,7 @@ def main() -> int:
         assert resilient["launches"][name] == 0, (name, resilient)
     log(card)
     log(json.dumps({"rank_split": split}))
+    log(json.dumps({"examples": examples}))
     log(json.dumps({"training": training}))
     log(json.dumps({"elastic": {"serving": eserve["row"],
                                 "kmeans": ekmeans,

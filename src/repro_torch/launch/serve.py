@@ -18,11 +18,14 @@ and the process's peak resident host memory.
 
 Over a multi-device pilot: ``--mesh DxM`` under ``torchrun`` (one rank a
 card, ``torchrun --nproc-per-node D*M -m repro_torch.launch.serve --mesh
-1x4 ...``) serves from one pilot whose mesh spans the ranks, data x model,
-tensor-parallel over the model axis (``serving/engine.py``): every rank
-runs the same engine on the same prompts, holds its shard of the weights
-and its own checkpoint directory (``<checkpoint-dir>/rank<r>``); rank 0
-prints.  ``--prompt-len-max`` draws each prompt's length uniformly from
+2x2 ...``) serves from one pilot whose mesh spans the ranks, data x model
+(``serving/engine.py``): the batch split over the data axis (each of the
+D data groups holds ``--batch``/D rows where D divides it and an MoE
+layer's capacity groups nest in the groups, else the whole batch) and
+tensor-parallel over the model axis; every rank runs the same
+engine on the same prompts, holds its ``model`` shard of the weights and
+its own checkpoint directory (``<checkpoint-dir>/rank<r>``); rank 0
+prints, with its rows and cache bytes.  ``--prompt-len-max`` draws each prompt's length uniformly from
 ``--prompt-len`` to it.
 """
 from __future__ import annotations
@@ -89,7 +92,10 @@ def main(argv=None):
                          "published config too deep for one card")
     ap.add_argument("--mesh", default=None,
                     help="DxM: one pilot whose data x model mesh spans "
-                         "the torchrun ranks (tensor-parallel serving)")
+                         "the torchrun ranks: the batch split over the D "
+                         "data groups (where D divides --batch and MoE "
+                         "capacity groups nest in them), the "
+                         "model tensor-parallel over M")
     args = ap.parse_args(argv)
 
     cfg = scaled_config(args.arch, args.preset)
@@ -165,7 +171,9 @@ def _serve(args, cfg, model, prompts, dev, mesh_shape, ckpt_dir, say):
                                        f"{len(r.result())} tokens, "
                                        f"expected {args.gen}")
             stats["tokens"] = [r.result() for r in reqs]
-        steps = max(1, stats["decode_steps"])
+        # the passes every rank shares (a data group with no active row
+        # skips its decode, but not the pass)
+        steps = max(1, stats["decode_passes"])
         stats["wall_s"] = wall
         stats["setup_s"] = setup
         stats["tok_per_s"] = stats["tokens_served"] / wall
@@ -186,6 +194,8 @@ def _serve(args, cfg, model, prompts, dev, mesh_shape, ckpt_dir, say):
             f"p99 latency {stats['p99_latency_s'] * 1e3:.0f}ms, "
             f"peak device {stats['peak_device_gb']:.2f} GB, "
             f"peak host {stats['peak_host_gb']:.2f} GB, "
+            f"rows a rank {stats['rows_local']}, "
+            f"cache {stats['cache_bytes'] / 1e9:.3f} GB a rank, "
             f"refills={stats['refills']}, "
             f"recovered={stats['recovered_requests']}, "
             f"kernel launches {stats['launches']}")

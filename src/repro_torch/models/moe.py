@@ -27,7 +27,9 @@ package:
   outputs come back the same way.  The one batch-wide quantity the
   loss is not linear in, the Switch aux loss's dispatch fractions, goes
   through ``parallel.sharding.batch_mean`` (the global batch's mean
-  under a sharded step);
+  under a sharded step; in serving, where each data group runs under its
+  ``model`` sub-mesh, the group's own rows: no collective crosses data
+  groups there);
 - top-k takes the experts in a stable descending sort, so that equal
   scores keep the lower expert first, as ``jax.lax.top_k`` does
   (``torch.topk`` promises no order among ties);
@@ -181,8 +183,9 @@ def expert_plan(n_local: int, num_experts: int):
     different tokens: a rank dispatches to the chunks of every rank of
     that axis that shares its other coordinates, in the axis' rank order
     (the layout `all_to_all` over the axis' group deals out).  A rank
-    holding only its ``model`` shard of such a leaf (serving, where the
-    batch axes repeat the batch) dispatches as under ``model`` alone."""
+    holding only its ``model`` shard of such a leaf dispatches as under
+    ``model`` alone; serving runs each data group under its ``model``
+    sub-mesh (``sharding.model_mesh``), where no batch axis is left."""
     if n_local == num_experts:
         return None
     ctx = current_context()
@@ -218,6 +221,33 @@ def expert_plan(n_local: int, num_experts: int):
                       MODEL_AXIS in axes)
 
 
+def token_groups(n: int, k: int, num_experts: int) -> int:
+    """The number of equal groups `moe_ffn` merges `n` tokens into where
+    a row's own tokens would leave the capacity buffer mostly empty
+    (``s * k < num_experts``): the largest divisor of `n` that gives
+    groups of at least ``2 * num_experts / k`` tokens, or 1."""
+    tpg = max(1, 2 * num_experts // k)          # tokens per group
+    g = max(1, n // tpg)
+    while n % g:
+        g -= 1
+    return g
+
+
+def groups_nest(cfg: ModelConfig, batch: int, d: int) -> bool:
+    """Whether `moe_ffn` over each of `d` equal slices of `batch` rows, as
+    a data group of a split serving batch runs it, gives the numbers of
+    the whole batch's call: true where every token group the whole batch
+    forms lies inside one slice.  Rows merge into groups only at lengths
+    ``s * k < num_experts``; at each, the whole batch's group count must
+    divide by `d` (the slice's own groups are then the same ones, and so
+    is their capacity).  True without MoE."""
+    e = getattr(cfg, "moe", None)
+    if e is None or d == 1:
+        return True
+    return all(token_groups(batch * s, e.top_k, e.num_experts) % d == 0
+               for s in range(1, -(-e.num_experts // e.top_k)))
+
+
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
             seq=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out (B,S,D), aux_loss ()).  On the rank's local
@@ -250,10 +280,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
     b, s = b0, s0
     xr = x_split if routed_split else x
     if s0 * k < ne and b0 > 1:
-        tpg = max(1, 2 * ne // k)               # tokens per group
-        g = max(1, (b0 * s0) // tpg)
-        while (b0 * s0) % g:
-            g -= 1
+        g = token_groups(b0 * s0, k, ne)
         b, s = g, b0 * s0 // g
         xr = xr.reshape(b, s, d)
         w = w.reshape(b, s, k)

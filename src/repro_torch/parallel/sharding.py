@@ -586,6 +586,33 @@ def batch_dims(mesh, rules: AxisRules) -> list:
     return [m for m, a in enumerate(mesh.mesh_dim_names) if a in named]
 
 
+def batch_group(mesh, rules: AxisRules) -> Optional[ModelGroup]:
+    """The calling rank's group over `mesh`'s batch dims of more than one
+    rank (`batch_dims`): its process group, its size D and the rank's
+    coordinate over those dims, which is also its place in the group's
+    order; None where D is 1.  Several such dims (``pod`` and ``data``)
+    become one flattened group, made collectively: every rank of `mesh`
+    calls this."""
+    names = [mesh.mesh_dim_names[m] for m in batch_dims(mesh, rules)
+             if mesh.size(m) > 1]
+    if not names:
+        return None
+    sub = mesh[names[0]] if len(names) == 1 else mesh[tuple(names)]._flatten()
+    return ModelGroup(sub.get_group(), sub.size(), sub.get_local_rank())
+
+
+def model_mesh(mesh, rules: AxisRules):
+    """`mesh` without its batch dims (`batch_dims`): the sub-mesh of the
+    other dims, over which a data group's model collectives run, or None
+    where no other dim is left."""
+    skip = batch_dims(mesh, rules)
+    keep = tuple(a for m, a in enumerate(mesh.mesh_dim_names)
+                 if m not in skip)
+    if not keep:
+        return None
+    return mesh[keep[0] if len(keep) == 1 else keep]
+
+
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean over the batch-axis ranks of `x`, a mean over this rank's
     slice of the batch: the global batch's mean when the slices are equal

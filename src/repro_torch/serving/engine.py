@@ -26,8 +26,25 @@ Greedy sampling is the distributed argmax (``common.vocab_argmax``).
 Every decision that feeds a collective is agreed: rank 0 picks which
 requests a pass admits (and into which rows) and when the loop stops,
 and broadcasts it; the other ranks take those requests from their own
-queues.  The batch is whole on every rank (the ``data`` axis of a pilot
-mesh repeats it).
+queues.  The batch is split over the mesh's batch dims, as the reference's
+rule ``("batch", ("pod", "data"))`` splits it: where their size D divides
+``batch_size`` B, data group g (the rank's coordinate over those dims,
+``sharding.batch_group``) holds rows ``[g*B/D, (g+1)*B/D)`` of the cache
+and the logits, prefills and decodes only those, and runs its model
+under the sharding context of its ``model`` sub-mesh
+(``sharding.model_mesh``), so that no collective inside the model spans
+data groups (a refill prefills on the owning group alone).  Every rank
+keeps the bookkeeping of all B rows; each pass, one all-gather of the
+groups' sampled tokens over the batch group gives every rank all B.
+Where D does not divide B the batch is whole on every group, as
+``resolve_pspec`` drops an axis that does not divide the dim; so it is
+where an MoE layer would merge rows of more than one data group into one
+capacity group (``moe.groups_nest``), since a group's own rows would then
+be dispatched with other capacities than the whole batch's.  The params
+are whole over the batch dims (the reference hands its jitted steps
+unsharded params).  With ``temperature > 0`` each group draws its rows
+from a generator seeded from ``(seed + 1, g)``, not from the whole
+batch's one draw.
 
 The paper's whole argument is that retained resources (compute AND
 memory) are the right home for data-intensive work.  The old
@@ -239,6 +256,8 @@ class _Replica:
         self.task = None                      # resident taskengine.Task
         self.dead = False
         self.active: Dict[int, ServeRequest] = {}   # row -> request
+        self.rows_local = 0                   # rows of its cache (a wave's)
+        self.cache_bytes = 0
 
     def push(self, req: ServeRequest) -> None:
         with self.cond:
@@ -292,8 +311,9 @@ class _Runtime:
         self.mesh = mesh
 
     def context(self):
-        """The sharding context the loop runs in: the pilot mesh's (its
-        tensor-parallel collectives), or none."""
+        """The sharding context the loop runs in: that of the pilot mesh's
+        ``model`` sub-mesh (a data group's tensor-parallel collectives),
+        or none."""
         if self.mesh is None:
             return contextlib.nullcontext()
         from repro_torch.parallel.sharding import AxisRules, sharding_context
@@ -348,6 +368,8 @@ class ServingEngine:
         self._bf16: List[bool] = []           # leaves stored as bf16 bits
         self._n_shards = 0
         self._mesh = None                     # the pilot mesh (SPMD)
+        self._model_mesh = None               # its dims but the batch's
+        self._split = None                    # batch_group where D | B
         self._replicas: Dict[str, _Replica] = {}
         self._unrouted: deque = deque()
         self._lock = threading.Lock()
@@ -359,8 +381,10 @@ class ServingEngine:
         self._reaper_stop = threading.Event()
         self._crash: Optional[BaseException] = None   # a loop's last error
         self._reaper: Optional[threading.Thread] = None
+        # decode_steps: the decodes this rank ran; decode_passes: the loop
+        # passes that decoded on any data group, alike on every rank
         self.counters = {"tokens_served": 0, "decode_steps": 0,
-                         "refills": 0, "waves": 0, "recovered_requests": 0,
+                         "decode_passes": 0, "refills": 0, "waves": 0, "recovered_requests": 0,
                          "replica_deaths": 0, "drained_replicas": 0}
 
     # -- deployment ------------------------------------------------------
@@ -381,8 +405,16 @@ class ServingEngine:
                 raise RuntimeError("ServingEngine.deploy: a pilot mesh is "
                                    "served as the session's one pilot")
             import torch.distributed as dist
+            from repro_torch.models.moe import groups_nest
+            from repro_torch.parallel.sharding import (AxisRules, batch_group,
+                                                       model_mesh)
             self._mesh = meshes[0]
             self.name = f"{self.name}.r{dist.get_rank()}"
+            self._model_mesh = model_mesh(self._mesh, AxisRules())
+            split = batch_group(self._mesh, AxisRules())
+            if (split is not None and self.batch_size % split.size == 0
+                    and groups_nest(self.cfg, self.batch_size, split.size)):
+                self._split = split
             # the admissions' group, its communicator up before serving
             dist.broadcast(torch.zeros(1, device=pilots[0].devices[0]),
                            src=int(self._mesh.mesh.flatten()[0]),
@@ -566,8 +598,7 @@ class ServingEngine:
             def pf(params, batch):
                 return model.prefill(params, batch, max_len)
 
-            return _Runtime(params, pf, model.decode, dev,
-                            getattr(pilot, "mesh", None))
+            return _Runtime(params, pf, model.decode, dev, self._model_mesh)
         return pilot.jit_cached((self.name, "runtime"), build)
 
     def _prefill_batch(self, ctx_rows: np.ndarray, device) -> dict:
@@ -656,11 +687,27 @@ class ServingEngine:
                 range(dist.get_world_size())) else dist.new_group(ranks))
         return self._group
 
+    def _gather_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """Every data group's `local` rows, in group order: one all-gather
+        over the batch group (`local` itself without a split)."""
+        if self._split is None:
+            return local
+        import torch.distributed as dist
+        out = local.new_empty((self._split.size * local.shape[0],))
+        dist.all_gather_into_tensor(out, local.contiguous(),
+                                    group=self._split.group)
+        return out
+
     def _decode_rows(self, rep: _Replica) -> int:
         pilot = rep.pilot
         rt = self._pilot_runtime(pilot)
         dev = rt.device
         B = self.batch_size
+        # the rows [lo, hi) of this rank's data group (module doc): its
+        # cache and logits hold them, the bookkeeping below all B
+        D, g = ((1, 0) if self._split is None
+                else (self._split.size, self._split.rank))
+        lo, hi = g * B // D, (g + 1) * B // D
         # a vision prefix shifts every text position
         vision = getattr(self.cfg, "vision_tokens", 0) or 0
         rows: List[Optional[ServeRequest]] = [None] * B
@@ -669,17 +716,20 @@ class ServingEngine:
         positions = np.zeros(B, np.int32)
         cache = None
         logits = None
-        gen = torch.Generator(device=dev).manual_seed(self._seed + 1)
+        # a group's draws: seeded from (seed + 1, g), group 0's seed + 1
+        gen = torch.Generator(device=dev).manual_seed(self._seed + 1
+                                                      + (g << 32))
         served = 0
 
         def fill_row(r: int, req: ServeRequest) -> None:
             nonlocal cache, logits
             with self._lock:
                 self.counters["refills"] += 1
-            row_logits, row_cache = rt.prefill(
-                rt.params, self._prefill_batch(req.ctx[None, :], dev))
-            cache = splice_row(cache, row_cache, r)
-            logits[r] = row_logits[0]
+            if lo <= r < hi:        # the owning group prefills, alone
+                row_logits, row_cache = rt.prefill(
+                    rt.params, self._prefill_batch(req.ctx[None, :], dev))
+                cache = splice_row(cache, row_cache, r - lo)
+                logits[r - lo] = row_logits[0]
             rows[r] = req
             rep.active[r] = req
             row_gen[r] = 0
@@ -694,12 +744,13 @@ class ServingEngine:
             nonlocal cache, logits
             with self._lock:
                 self.counters["waves"] += 1
-            ctxs = [q.ctx for q in reqs]
-            pad = ctxs[0]
-            while len(ctxs) < B:
-                ctxs.append(pad)
+            ctxs = [reqs[r if r < len(reqs) else 0].ctx
+                    for r in range(lo, hi)]
             logits, cache = rt.prefill(
                 rt.params, self._prefill_batch(np.stack(ctxs), dev))
+            rep.rows_local = int(logits.shape[0])
+            rep.cache_bytes = sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(cache))
             for r, req in enumerate(reqs):
                 rows[r] = req
                 rep.active[r] = req
@@ -730,10 +781,10 @@ class ServingEngine:
             if not active.any():
                 continue
             # -- sample (inactive rows masked), account, retire ----------
-            tok = sample_tokens(logits, to_device(active, dev), gen,
+            tok = sample_tokens(logits, to_device(active[lo:hi], dev), gen,
                                 self.temperature,
                                 getattr(self.cfg, "vocab_size", None))
-            tok_np = tok.cpu().numpy()
+            tok_np = self._gather_rows(tok).cpu().numpy()
             n_active = int(active.sum())
             with self._lock:
                 self.counters["tokens_served"] += n_active
@@ -753,10 +804,13 @@ class ServingEngine:
                     rep.active.pop(r, None)
                     served += 1
             still = np.array([q is not None for q in rows])
+            positions[still] += 1
             if still.any():
-                positions[still] += 1
+                with self._lock:
+                    self.counters["decode_passes"] += 1
+            if still[lo:hi].any():  # a group with no active row skips
                 logits, cache = rt.decode(rt.params, cache, tok[:, None],
-                                          to_device(positions, dev))
+                                          to_device(positions[lo:hi], dev))
                 with self._lock:
                     self.counters["decode_steps"] += 1
             if hasattr(pilot, "beat"):
@@ -958,7 +1012,7 @@ class ServingEngine:
         # by the engine's reference cycles, lets a worker drop its last
         # work's tensors while the interpreter exits, which aborts it)
         self.__dict__.pop("_group", None)
-        self._mesh = None
+        self._mesh = self._model_mesh = self._split = None
 
     def __enter__(self) -> "ServingEngine":
         return self
@@ -974,7 +1028,9 @@ class ServingEngine:
             completed = self._completed
             replicas = {pid: {"dead": rep.dead,
                               "queued": len(rep.queue),
-                              "active_rows": len(rep.active)}
+                              "active_rows": len(rep.active),
+                              "rows_local": rep.rows_local,
+                              "cache_bytes": rep.cache_bytes}
                         for pid, rep in self._replicas.items()}
             unrouted = len(self._unrouted)
         lats = sorted(r.latency_s for r in reqs
@@ -982,6 +1038,12 @@ class ServingEngine:
         out = dict(self.counters)
         out.update({
             "requests": len(reqs), "completed": completed,
+            # the rows of a replica's cache and logits (B/D over a pilot
+            # mesh whose batch dims D divide the batch; 0 before its first
+            # wave) and its cache's bytes, summed over the replicas
+            "rows_local": max((r["rows_local"] for r in replicas.values()),
+                              default=0),
+            "cache_bytes": sum(r["cache_bytes"] for r in replicas.values()),
             "unrouted": unrouted, "replicas": replicas,
             "p50_latency_s": _pct(lats, 0.50),
             "p99_latency_s": _pct(lats, 0.99),

@@ -447,9 +447,9 @@ def test_encdec_engine_tokens_equal_the_jax_engine_on_carried_weights():
 
 def test_port_modules_and_chip_smoke_import_nothing_of_jax():
     """Every module of src/repro_torch imports (in a fresh interpreter)
-    without pulling in jax or the JAX package, and chip_smoke.py names
-    neither in any import; the CLI serves the MoE, vision, MLA and enc-dec
-    configs."""
+    without pulling in jax or the JAX package, and neither chip_smoke.py
+    nor any of the ported examples (examples/torch/*.py) names either in
+    an import; the CLI serves the MoE, vision, MLA and enc-dec configs."""
     import ast
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -475,12 +475,14 @@ def test_port_modules_and_chip_smoke_import_nothing_of_jax():
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip().splitlines()[-1]) > 40
-    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
-    roots = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            roots.add(node.module.split(".")[0])
-    assert "repro_torch" in roots
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    examples = sorted((SRC.parent / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 6, examples
+    for path in [SRC.parent / "chip_smoke.py"] + examples:
+        roots = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                roots.add(node.module.split(".")[0])
+        assert "repro_torch" in roots, path
+        assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)

@@ -245,11 +245,12 @@ def test_cli_model_parallel_and_mesh_over_ranks(tmp_path):
 @pytest.mark.gpu
 def test_four_cards_serve_the_one_card_tokens(tmp_path):
     """Llama-3.2-1B at its published widths (the engine's seeded draw),
-    greedy: in fp32 activations the (1, 4) pilot mesh on four cards
-    gives each request the one-card engine's tokens; in bf16 the
-    tensor-parallel sums may flip near-ties, so the share of equal
-    tokens is reported (``bf16_agreement`` in rank 0's output), not
-    held."""
+    greedy: in fp32 activations the (1, 4), (4, 1) and (2, 2) pilot
+    meshes on four cards (heads split four ways; the batch of 4 split
+    into a row a rank; both halved) give each request the one-card
+    engine's tokens; in bf16 the tensor-parallel sums may flip near-ties,
+    so the share of equal tokens over (1, 4) is reported
+    (``bf16_agreement`` in rank 0's output), not held."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA cards")
     out = spawn("""
@@ -266,20 +267,21 @@ def test_four_cards_serve_the_one_card_tokens(tmp_path):
             cfg = dataclasses.replace(get_config("llama3_2_1b"), dtype=dtype)
             with PilotSession(device=device) as s:
                 s.add_pilot(memory_gb=4, mesh_axes=("data", "model"),
-                            mesh_shape=(1, 4) if mesh else ())
+                            mesh_shape=mesh)
                 with ServingEngine(s, build_model(cfg), batch_size=4,
                                    max_len=512, page_tokens=16) as eng:
                     eng.deploy()
                     reqs = [eng.submit(p, 24) for p in prompts]
                     eng.drain(timeout=600)
+                    assert eng.stats()["rows_local"] == 4 // (
+                        mesh[0] if mesh else 1)
                     return [r.result(timeout=10) for r in reqs]
 
-        got = {}
-        for dtype in ("float32", "bfloat16"):
-            got[dtype] = (serve(dtype, False), serve(dtype, True))
-        one, four = got["float32"]
-        assert four == one, [a == b for a, b in zip(four, one)]
-        one, four = got["bfloat16"]
+        one = serve("float32", ())
+        for mesh in ((1, 4), (4, 1), (2, 2)):
+            four = serve("float32", mesh)
+            assert four == one, (mesh, [a == b for a, b in zip(four, one)])
+        one, four = serve("bfloat16", ()), serve("bfloat16", (1, 4))
         same = sum(x == y for a, b in zip(one, four) for x, y in zip(a, b))
         if rank == 0:
             (out / "agreement.json").write_text(json.dumps({
