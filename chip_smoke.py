@@ -59,6 +59,16 @@ kernels' launch counts set to 0 just before and read just after:
   each decode token, against the 1500 frames), causal in the decoder's
   prefill, decode_attention at one query head per kv head in each decode
   step, after a model-level check on frames from a seed;
+- serving Falcon-Mamba-7B (the SSM family: 64 Mamba-1 layers, no
+  attention) at its published widths and full depth, 16 requests of
+  512-2048 prompt tokens (kernel selective_scan in every layer of each
+  prefill, on the chunked route at a one-row refill and in one pass at
+  the batch-8 wave; the decode step's recurrence is PyTorch), after a
+  model-level check at 4 of its layers;
+- serving StarCoder2-7B (GQA at 36/4: 9 query heads a kv head, two head
+  groups of decode_attention's blocks) at its published widths and full
+  depth, 16 requests of 1024-4096 prompt tokens into 8192 slots, after a
+  model-level check at 4 of its 32 layers;
 - serving DeepSeek-V3 (MLA + MoE) at its published widths, 5 of its 61
   layers, last: its path runs none of the port's kernels (MLA and the
   experts are PyTorch products, as the JAX package runs them in jnp); its
@@ -178,6 +188,18 @@ WHISPER_MAX_LEN, WHISPER_PROMPT_LENS = 448, (4, 16, 64)
 # MoE), 16 requests of 256/512/1024 tokens into 2048 slots
 DEEPSEEK_CHECK_LAYERS, DEEPSEEK_LAYERS = 3, 5
 DEEPSEEK_MAX_LEN, DEEPSEEK_PROMPT_LENS = 2048, (256, 512, 1024)
+# the Falcon-Mamba-7B phases (the SSM family), at its published widths: the
+# model check at 4 of its 64 layers on 4 prompts of 1024, serving all 64
+# layers (14.54 GB of bf16), 16 requests of 512/1024/2048 tokens
+# (max_len 4096; the cache is each layer's conv history and state)
+FALCON_CHECK_LAYERS, FALCON_CHECK_LEN, FALCON_MAX_LEN = 4, 1024, 4096
+FALCON_PROMPT_LENS = (512, 1024, 2048)
+# the StarCoder2-7B phases (36/4 heads of 128: G = 9), at its published
+# widths: the model check at 4 of its 32 layers on 8 prompts of 1024,
+# serving all 32 layers (14.80 GB of bf16), 16 requests of 1024/2048/4096
+# tokens into 8192 slots (a 4.3 GB cache at batch 8)
+STARCODER_CHECK_LAYERS, STARCODER_CHECK_LEN = 4, 1024
+STARCODER_MAX_LEN, STARCODER_PROMPT_LENS = 8192, (1024, 2048, 4096)
 
 
 def log(*args) -> None:
@@ -1122,16 +1144,18 @@ def check_scan(torch, op, name, b, s, di, n, dtype, h0=False) -> dict:
     return row
 
 
-def hymba_model_phase(torch, cfg, params, kernels: dict) -> dict:
-    """Kernel vs plain at model level, full width: prefill 4 prompts of
-    1536 tokens (past the 1024 window: SWA masking in prefill and the
-    rolled cache in decode), then 8 decode steps, three ways: the kernel
-    path; the plain path (decode_kernel=False, and prefill attention and
-    scan patched to their plain versions here); the fp32 model (params
-    cast to fp32) on the plain path.  All are fed the fp32 model's greedy
-    tokens.  Tolerance, as for Llama (PERF.md): max|dlogits| of kernel vs
-    plain <= max|dlogits| of plain bf16 vs fp32, prefill logits
-    included."""
+def ssm_model_phase(torch, cfg, params, kernels: dict, *, name: str,
+                    s: int, max_len: int, expect: dict) -> dict:
+    """Kernel vs plain at model level for the SSM family and the hybrid
+    (Hymba), full width: prefill 4 prompts of `s` tokens (for Hymba past
+    its 1024 window: SWA masking in prefill and the rolled cache in
+    decode), then 8 decode steps, three ways: the kernel path; the plain
+    path (decode_kernel=False, and prefill attention and scan patched to
+    their plain versions here); the fp32 model (params cast to fp32) on
+    the plain path.  All are fed the fp32 model's greedy tokens.  The
+    kernel path must count `expect` launches, by kernel.  Tolerance, as
+    for Llama (PERF.md): max|dlogits| of kernel vs plain <= max|dlogits|
+    of plain bf16 vs fp32, prefill logits included."""
     import functools
 
     import repro_torch.models.attention as attn_models
@@ -1139,7 +1163,7 @@ def hymba_model_phase(torch, cfg, params, kernels: dict) -> dict:
     from repro_torch.models.common import tree_map
     from repro_torch.models.model import build_model
 
-    b, s = 4, HYMBA_CHECK_LEN
+    b = 4
     kern = build_model(cfg)
     plain = build_model(dataclasses.replace(cfg, decode_kernel=False))
     m32 = build_model(dataclasses.replace(cfg, decode_kernel=False,
@@ -1148,8 +1172,7 @@ def hymba_model_phase(torch, cfg, params, kernels: dict) -> dict:
     pos0 = torch.full((b,), s, dtype=torch.int32, device="cuda")
 
     def run(model, p, feed=None):
-        logits, cache = model.prefill(p, {"tokens": prompts},
-                                      HYMBA_MAX_LEN)
+        logits, cache = model.prefill(p, {"tokens": prompts}, max_len)
         outs, toks, pos = [logits.float()], [], pos0
         for t in range(8):
             tok = (logits.argmax(-1).to(torch.int32) if feed is None
@@ -1177,18 +1200,15 @@ def hymba_model_phase(torch, cfg, params, kernels: dict) -> dict:
     zero_counts(kernels)
     got_k, _ = run(kern, params, feed)
     launches = read_counts(kernels)
-    assert launches["flash_attention"] == cfg.num_layers, launches
-    assert launches["flash_attention_fp32"] == 0, launches
-    assert launches["selective_scan"] == cfg.num_layers, launches
-    assert launches["decode_attention"] == 8 * cfg.num_layers, launches
-    assert launches["decode_attention_tc"] == 8 * cfg.num_layers, launches
+    for kernel, n in expect.items():
+        assert launches[kernel] == n, (kernel, n, launches)
     d = max(float((a - c).abs().max()) for a, c in zip(got_k, got_p))
     d_plain = max(float((a - c).abs().max()) for a, c in zip(got_p, want32))
     d_kernel = max(float((a - c).abs().max()) for a, c in zip(got_k, want32))
     agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum())
                 for a, c in zip(got_k, got_p))
     scale = max(float(a.abs().max()) for a in got_p)
-    log(f"model check hymba-1.5b full width, {b} prompts x {s}, 8 decode "
+    log(f"model check {name}, {b} prompts x {s}, 8 decode "
         f"steps: max|dlogits| kernel vs plain = {d:.6f} (bound: plain vs "
         f"fp32 = {d_plain:.6f}); kernel vs fp32 = {d_kernel:.6f}; "
         f"max|logits| {scale:.4f}; greedy agree {agree}/{9 * b}; "
@@ -1273,7 +1293,8 @@ def hymba_serving_phase(torch, core, cfg, params, kernels: dict) -> dict:
 def family_serving_phase(torch, core, name, cfg, params, kernels: dict,
                          lens, max_len, *, memory_gb=8, after=None,
                          width="full width", expect=None) -> dict:
-    """A family's serving path (InternVL2, Mixtral, Whisper, DeepSeek-V3):
+    """A family's serving path (InternVL2, Mixtral, Whisper, Falcon-Mamba,
+    StarCoder2, DeepSeek-V3):
     16 greedy requests whose prompt lengths are drawn from `lens`
     (np.random.default_rng(0)).  `expect(stats)` gives the launches the
     path must count, by kernel; by default (a GQA decoder)
@@ -3229,7 +3250,15 @@ def main() -> int:
         ("llama decode, (2, 2) rank", 8, 1024, 16, 4, 64, bf16, 0,
          {"fill": 0.25}),
         ("llama decode, (2, 2) rank, batch 32", 16, 1024, 16, 4, 64, bf16,
-         0, {"fill": 0.25})]
+         0, {"fill": 0.25}),
+        # StarCoder2-7B (36 q and 4 kv heads of 128: G = 9, two head
+        # groups a (row, kv head), the second of one head) serving
+        # 1024-4096-token prompts from an 8192-slot cache at batch 8; and
+        # G = 9 in fp32 on the CUDA-core route, and at 9/1
+        ("starcoder2 decode", 8, 8192, 36, 4, 128, bf16, 0, {"fill": 0.25}),
+        ("starcoder2 G=9 fp32", 3, 1000, 36, 4, 128, f32, 0, {"fill": 0.6}),
+        ("G=9 over one kv head", 2, 777, 9, 1, 128, bf16, 300,
+         {"fill": 1.0})]
     attn_rows = [check_attention(torch, decode_attention_op,
                                  decode_attention_ref, name, b, sc, nq, nkv,
                                  h, dt, window=w, **kind)
@@ -3255,7 +3284,14 @@ def main() -> int:
         ("mixtral refill, (1, 4) rank", 1, 4608, 12, 2, 128, bf16, 4096),
         # Yi-9B's refill of a 2048-token prompt, on the rank that owns the
         # row (heads whole: one card, or (4, 1))
-        ("yi-9b refill", 1, 2048, 32, 4, 128, bf16, 0)]
+        ("yi-9b refill", 1, 2048, 32, 4, 128, bf16, 0),
+        # StarCoder2-7B (36/4, H=128): a refill of a 4096-token prompt and
+        # the serving phase's wave (its first prompt, 4096 tokens, and 7
+        # padding copies)
+        ("starcoder2 refill", 1, 4096, 36, 4, 128, bf16, 0),
+        ("starcoder2 wave", 8, 4096, 36, 4, 128, bf16, 0)]
+    gc.collect()      # the StarCoder2 wave's plain version holds ~58 GB
+    torch.cuda.empty_cache()
     flash_rows = [check_flash(torch, flash_attention_op, *shape)
                   for shape in flash_shapes]
     # Whisper's non-causal shapes (8/8 heads of 64, 1500 frames): the
@@ -3281,7 +3317,20 @@ def main() -> int:
                    ("ragged, h0", 2, 1000, 96, 4, f32, True),
                    # a rank's 800 of Hymba's 3200 channels over (1, 4)
                    ("hymba refill, (1, 4) rank", 1, 2048, 800, 16, bf16),
-                   ("hymba wave, (1, 4) rank", 8, 512, 800, 16, bf16)]
+                   ("hymba wave, (1, 4) rank", 8, 512, 800, 16, bf16),
+                   # Falcon-Mamba-7B (Di = 8192, N = 16): a 2048-token
+                   # refill on the chunked route (4 chunks of 512), the
+                   # serving phase's wave (8 x 2048) and a wave of 8 x 512
+                   # in one pass; a (1, 4) rank's 2048 channels of the
+                   # refill (16 chunks of 128) and a (4, 1) rank's 2 rows
+                   # of the wave
+                   ("falcon-mamba refill", 1, 2048, 8192, 16, bf16),
+                   ("falcon-mamba wave", 8, 2048, 8192, 16, bf16),
+                   ("falcon-mamba wave of 512", 8, 512, 8192, 16, bf16),
+                   ("falcon-mamba refill, (1, 4) rank", 1, 2048, 2048, 16,
+                    bf16),
+                   ("falcon-mamba wave, (4, 1) rank", 2, 2048, 8192, 16,
+                    bf16)]
     scan_rows = [check_scan(torch, selective_scan_op, *shape)
                  for shape in scan_shapes]
 
@@ -3351,7 +3400,13 @@ def main() -> int:
                      "selective_scan": (scan_mod, "LAUNCHES"),
                      "decode_attention": (attn_mod, "LAUNCHES"),
                      "decode_attention_tc": (attn_mod, "TC_LAUNCHES")}
-    hymba_row = hymba_model_phase(torch, hcfg, hparams, hymba_kernels)
+    n = hcfg.num_layers
+    hymba_row = ssm_model_phase(
+        torch, hcfg, hparams, hymba_kernels, name="hymba-1.5b full width",
+        s=HYMBA_CHECK_LEN, max_len=HYMBA_MAX_LEN,
+        expect={"flash_attention": n, "flash_attention_fp32": 0,
+                "selective_scan": n, "decode_attention": 8 * n,
+                "decode_attention_tc": 8 * n})
     hymba_steps = hymba_trace(torch, hcfg, hparams)
     hserve = hymba_serving_phase(torch, core, hcfg, hparams, hymba_kernels)
     del hparams
@@ -3450,6 +3505,75 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 10b. the serving path: Falcon-Mamba-7B, all 64 layers -------------
+    full = get_config("falcon_mamba_7b")
+    ccfg = dataclasses.replace(full, num_layers=FALCON_CHECK_LAYERS)
+    ssm_kernels = gqa_kernels | {"selective_scan": (scan_mod, "LAUNCHES")}
+    t0 = time.perf_counter()
+    cparams = build_model(ccfg).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"params: {ccfg.name} at {ccfg.num_layers} of {full.num_layers} "
+        f"layers, {ccfg.num_params()} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    n = ccfg.num_layers
+    falcon_row = ssm_model_phase(
+        torch, ccfg, cparams, ssm_kernels, name=f"falcon-mamba-7b ({n} of "
+        f"{full.num_layers} layers, published widths)", s=FALCON_CHECK_LEN,
+        max_len=FALCON_MAX_LEN, expect={
+            "selective_scan": n, "flash_attention": 0,
+            "flash_attention_fp32": 0, "decode_attention": 0})
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
+    log(f"serving {full.name} at all {full.num_layers} layers: "
+        f"{full.num_params()} parameters (about "
+        f"{2 * full.num_params() / 1e9:.3f} GB of bf16), drawn on the card "
+        f"by the engine from its seed")
+    # no attention: the scan in every layer of each prefill, the decode
+    # step's recurrence in PyTorch
+    fserve = family_serving_phase(
+        torch, core, "falcon-mamba-7b", full, None, ssm_kernels,
+        FALCON_PROMPT_LENS, FALCON_MAX_LEN, width="published widths, all "
+        f"{full.num_layers} layers,", expect=lambda st: {
+            "selective_scan": full.num_layers * (st["waves"]
+                                                 + st["refills"]),
+            "flash_attention": 0, "decode_attention": 0})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10c. the serving path: StarCoder2-7B, all 32 layers ---------------
+    full = get_config("starcoder2_7b")
+    ccfg = dataclasses.replace(full, num_layers=STARCODER_CHECK_LAYERS)
+    t0 = time.perf_counter()
+    cparams = build_model(ccfg).init(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"params: {ccfg.name} at {ccfg.num_layers} of {full.num_layers} "
+        f"layers, {ccfg.num_params()} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    code_row = model_phase(
+        torch, ccfg, cparams, name=f"starcoder2-7b ({ccfg.num_layers} of "
+        f"{full.num_layers} layers, published widths)",
+        s=STARCODER_CHECK_LEN, max_len=STARCODER_MAX_LEN, trace=False)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
+    log(f"serving {full.name} at all {full.num_layers} layers: "
+        f"{full.num_params()} parameters (about "
+        f"{2 * full.num_params() / 1e9:.3f} GB of bf16), drawn on the card "
+        f"by the engine from its seed")
+    # flash_attention (tensor cores) in every layer of each prefill,
+    # decode_attention (tensor cores) in every layer of each decode step
+    cserve = family_serving_phase(
+        torch, core, "starcoder2-7b", full, None, gqa_kernels,
+        STARCODER_PROMPT_LENS, STARCODER_MAX_LEN,
+        width=f"published widths, all {full.num_layers} layers,")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 11. the serving path: DeepSeek-V3 at published widths, last -------
     full = get_config("deepseek_v3_671b")
     ccfg = dataclasses.replace(full, num_layers=DEEPSEEK_CHECK_LAYERS)
@@ -3522,6 +3646,8 @@ def main() -> int:
             ("internvl2_2b serving", vserve["launches"]),
             ("mixtral_8x22b serving", mserve["launches"]),
             ("whisper_base serving", wserve["launches"]),
+            ("falcon_mamba_7b serving", fserve["launches"]),
+            ("starcoder2_7b serving", cserve["launches"]),
             ("deepseek_v3_671b serving", dserve["launches"]))} | {
         "llama3_2_1b training": train_launches[name],
         "llama3_2_1b sharded training": sharded_launches[name],
@@ -3571,6 +3697,7 @@ def main() -> int:
         "model_checks": {"internvl2_2b": vision_row,
                          "mixtral_8x22b": moe_row,
                          "whisper_base": whisper_row,
+                         "starcoder2_7b": code_row,
                          # no kernel of the port on its path
                          "deepseek_v3_671b": mla_row},
         "servings": {"internvl2_2b": served(vserve),
@@ -3579,6 +3706,8 @@ def main() -> int:
                      | mserve["after"],
                      "whisper_base": served(wserve)
                      | {"peak_bytes": wserve["peak_bytes"]},
+                     "starcoder2_7b": served(cserve)
+                     | {"peak_bytes": cserve["peak_bytes"]},
                      "deepseek_v3_671b": served(dserve)
                      | {"peak_bytes": dserve["peak_bytes"]}
                      | dserve["after"]}}, {
@@ -3595,15 +3724,21 @@ def main() -> int:
         "model_check": hymba_row, "traces": hymba_steps,
         "serving": served(hserve),
         "model_checks": {"whisper_base": whisper_row},
-        "servings": {"whisper_base": served(wserve)}}, {
+        "servings": {"whisper_base": served(wserve),
+                     "starcoder2_7b": served(cserve)}}, {
         "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES,
-        "launches": hserve["launches"]["selective_scan"],
+        "launches": sum(by_path("selective_scan").values()),
         "launches_by_path": by_path("selective_scan"), "checked": True,
         "max_abs_err": max(r["max_abs_err"] for r in scan_rows),
         "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_us"] / 1e3, "bound_by": shead["bound_by"],
-        "library_ms": None, "shapes": scan_rows}]}))
+        "library_ms": None, "shapes": scan_rows,
+        "model_checks": {"hymba_1_5b": hymba_row,
+                         "falcon_mamba_7b": falcon_row},
+        "servings": {"hymba_1_5b": served(hserve),
+                     "falcon_mamba_7b": served(fserve)
+                     | {"peak_bytes": fserve["peak_bytes"]}}}]}))
     # -- 13. the last line --------------------------------------------------
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -99,6 +99,29 @@ def test_port_ref_matches_jax_ref_and_kernel_bf16(sc, heads, h, window,
                                    rtol=1e-2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,window", [((9, 1), 0), ((18, 2), 64)])
+def test_port_ref_matches_jax_at_nine_heads_a_kv_head(heads, window, dtype):
+    """StarCoder2's 9 query heads a kv head (36/4) at a narrow H of 32:
+    the kernel takes 8 heads a block, so its second head group holds one
+    head; the plain version against the JAX oracle and interpret-mode
+    kernel (atol/rtol 2e-5 in fp32, 1e-2 in bf16, as above)."""
+    args = _inputs(2, 128, *heads, 32, 0.75, seed=12)
+    ours = _port(args, dtype, window=window).float().numpy()
+    tol = 2e-5 if dtype == "float32" else 1e-2
+    for want in _jax(args, dtype, window=window):
+        np.testing.assert_allclose(ours, want, atol=tol, rtol=tol)
+
+
+def test_nine_heads_a_kv_head_plan_two_head_groups():
+    """StarCoder2's decode (B=8, 36/4, an 8192-slot cache): two head
+    groups a (row, kv head), 64 clusters, 4 splits each (a divisor of the
+    128 tiles near the 2-blocks-an-SM target of 5)."""
+    nsplit, per, stages = cuda_mod.plan(8, 4, 9, 8192, num_sms=132)
+    assert 8 * 4 * -(-9 // cuda_mod.HEADS) == 64
+    assert (nsplit, per, stages) == (4, 32, 2)
+
+
 def test_empty_slots_are_ignored():
     """Garbage in empty (-1) slots must not affect the output."""
     q, k, v, cpos, pos = _inputs(1, 128, 4, 2, 32, 40 / 128, seed=2)
@@ -403,6 +426,24 @@ def test_cuda_kernel_head_width_128_shapes_on_the_card(kind):
     else:
         _check_on_card(_inputs(8, 1024, 16, 8, 128, 1.0, seed=10),
                        "bfloat16", 0)
+
+
+# StarCoder2-7B's 9 query heads a kv head: the second head group of each
+# (row, kv head) holds one head (blockIdx.y = 1, 7 empty mma columns)
+NINE = [((8, 8192, 36, 4, 128), "bfloat16", 0.25, 0),    # its serving
+        ((3, 1000, 36, 4, 128), "float32", 0.6, 0),
+        ((2, 777, 9, 1, 128), "bfloat16", 1.0, 300),
+        ((2, 777, 9, 1, 128), "float32", 1.0, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,fill,window", NINE,
+                         ids=["36/4-bf16", "36/4-fp32", "9/1-bf16",
+                              "9/1-fp32"])
+def test_cuda_kernel_nine_heads_a_kv_head_on_the_card(shape, dtype, fill,
+                                                      window):
+    _card()
+    _check_on_card(_inputs(*shape, fill, seed=13), dtype, window)
 
 
 @pytest.mark.gpu

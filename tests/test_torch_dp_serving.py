@@ -19,7 +19,10 @@ the sampled tokens over the batch group each pass.
 - ``reduced(mixtral_8x22b)`` over (2, 2) (experts split over ``model``,
   dispatch inside a group) and ``reduced(hymba_1_5b)`` over (2, 1) (the
   hybrid tuple cache spliced at a local row) give the JAX engine's tokens
-  over the same meshes.  MoE decode merges rows into capacity groups of
+  over the same meshes, and so does ``reduced(falcon_mamba_7b)`` (the SSM
+  family: the stacked conv history and state) over (2, 1) (two rows a
+  rank) and over (1, 2) (the batch whole, the inner channels of
+  ``w_in``, the conv, the state and ``w_out`` split over ``model``).  MoE decode merges rows into capacity groups of
   2E/k tokens (4 here), which the reference forms over the whole batch:
   at batch 8 over (2, 2) each data group holds whole groups and the batch
   is split; at batch 4 the one group spans both data groups, and the
@@ -31,6 +34,9 @@ the sampled tokens over the batch group each pass.
   every loop pass and the token all-gather of every pass that samples.
 - ``launch.serve --mesh 2x1`` over 2 ranks serves every request its
   tokens, alike on both ranks, at 2 rows a rank.
+- On four cards (a ``gpu`` test, run by ``tools/ssm_four_cards.sh``):
+  reduced Falcon-Mamba in fp32 over (1, 4), (4, 1) and (2, 2) pilot meshes
+  gives every request one card's tokens.
 """
 import json
 import math
@@ -48,7 +54,9 @@ JAX_RUNS = (("llama", "llama3_2_1b", 4, ("data", "model"), (2, 2)),
             ("llama_b3", "llama3_2_1b", 3, ("data", "model"), (2, 2)),
             ("mixtral", "mixtral_8x22b", 8, ("data", "model"), (2, 2)),
             ("mixtral_b4", "mixtral_8x22b", 4, ("data", "model"), (2, 2)),
-            ("hymba", "hymba_1_5b", 4, ("data", "model"), (2, 1)))
+            ("hymba", "hymba_1_5b", 4, ("data", "model"), (2, 1)),
+            ("falcon", "falcon_mamba_7b", 4, ("data", "model"), (2, 1)),
+            ("falcon_1x2", "falcon_mamba_7b", 4, ("data", "model"), (1, 2)))
 # (name, the JAX run it is held to, batch, mesh axes, mesh shape) on 4
 # ranks and on 2
 FOUR = (("llama 2x2", "llama", 4, ("data", "model"), (2, 2)),
@@ -58,7 +66,9 @@ FOUR = (("llama 2x2", "llama", 4, ("data", "model"), (2, 2)),
         ("mixtral b4 2x2", "mixtral_b4", 4, ("data", "model"), (2, 2)))
 TWO = (("llama 2x1", "llama", 4, ("data", "model"), (2, 1)),
        ("llama b3 2x1", "llama_b3", 3, ("data", "model"), (2, 1)),
-       ("hymba 2x1", "hymba", 4, ("data", "model"), (2, 1)))
+       ("hymba 2x1", "hymba", 4, ("data", "model"), (2, 1)),
+       ("falcon 2x1", "falcon", 4, ("data", "model"), (2, 1)),
+       ("falcon 1x2", "falcon_1x2", 4, ("data", "model"), (1, 2)))
 # the runs whose batch stays whole on every rank: D does not divide it,
 # or an MoE capacity group would span data groups
 WHOLE = {"llama b3 2x1", "mixtral b4 2x2"}
@@ -251,6 +261,10 @@ def test_no_collective_of_the_model_spans_data_groups(run, four_ranks,
     for got in _ranks(name, four_ranks, two_ranks):
         wide = [n for n, ranks in got["collectives"]
                 if len(groups(ranks)) > 1]
+        if d == 1:           # one data group: no collective spans two
+            assert wide == [], wide
+            assert any(len(r) == m for _, r in got["collectives"])
+            continue
         gathers = wide.count("all_gather_into_tensor")
         assert set(wide) <= {"broadcast", "all_gather_into_tensor"}, wide
         assert wide.count("broadcast") == got["passes"] > 0
@@ -329,3 +343,61 @@ def test_published_moe_batches_split_only_where_groups_nest(arch, batch, d,
     from repro_torch.configs import get_config
     from repro_torch.models import moe
     assert moe.groups_nest(get_config(arch), batch, d) == split
+
+
+# reduced Falcon-Mamba served greedily in fp32 over a pilot mesh and on one
+# device of each rank; run by test_four_ssm_cards_serve_the_one_card_tokens
+# under NCCL (one card a rank), rehearsed under gloo on the CPU
+SSM_MESHES = """
+import json
+from repro_torch.configs import get_config
+from repro_torch.configs.base import reduced
+from repro_torch.core import PilotSession
+from repro_torch.models.model import build_model
+from repro_torch.serving import ServingEngine
+cfg = reduced(get_config("falcon_mamba_7b"), dtype="float32")
+rng = np.random.default_rng(0)
+prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+           for n in rng.integers(6, 20, size=8)]
+
+
+def serve(mesh):
+    with PilotSession(device=device or "cpu",
+                      checkpoint_dir=str(out / f"ck{rank}")) as s:
+        s.add_pilot(memory_gb=0.25, mesh_axes=("data", "model"),
+                    mesh_shape=mesh)
+        with ServingEngine(s, build_model(cfg), batch_size=4, max_len=64,
+                           page_tokens=4) as eng:
+            eng.deploy()
+            reqs = [eng.submit(p, 12) for p in prompts]
+            eng.drain(timeout=600)
+            st = eng.stats()
+            assert st["rows_local"] == 4 // (mesh[0] if mesh else 1), st
+            assert st["refills"] >= 3, st
+            return [r.result(timeout=10) for r in reqs]
+
+
+one = serve(())
+for mesh in ((1, 4), (4, 1), (2, 2)):
+    got = serve(mesh)
+    assert got == one, (mesh, [a == b for a, b in zip(got, one)])
+if rank == 0:
+    (out / "ssm_meshes.json").write_text(json.dumps(one))
+"""
+
+
+@pytest.mark.gpu
+def test_four_ssm_cards_serve_the_one_card_tokens(tmp_path):
+    """Reduced Falcon-Mamba (fp32, greedy, the engine's seeded draw): over
+    the (1, 4) pilot mesh (its 128 inner channels 32 a card), the (4, 1)
+    one (a row a card) and the (2, 2) one (both halved) on four cards,
+    with the selective_scan kernel on each rank's prefill, every request
+    gets the one-card engine's tokens."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    out = spawn(SSM_MESHES, world=4, tmp_path=tmp_path, timeout=600,
+                backend="nccl")
+    print("four cards, Falcon-Mamba (reduced) over (1, 4), (4, 1), (2, 2):",
+          "tokens equal one card's for",
+          len(json.loads((out / "ssm_meshes.json").read_text())),
+          "requests")

@@ -207,10 +207,17 @@ def test_chunked_scan_matches_both_plain_versions(chunk, h0):
                                           ((8, 512, 3200, 16), 1),
                                           ((1, 4096, 3200, 16), 11),
                                           ((2, 1000, 200, 32), 32),
-                                          ((1, 10, 64, 16), 1)])
+                                          ((1, 10, 64, 16), 1),
+                                          ((1, 2048, 8192, 16), 4),
+                                          ((8, 512, 8192, 16), 1),
+                                          ((1, 2048, 2048, 16), 16),
+                                          ((2, 2048, 8192, 16), 1)])
 def test_chunk_rule(shape, chunks):
-    """One pass where B*Di threads fill the card (Hymba's wave); else
-    chunks of a multiple of 16 steps (Hymba's refill: 11 of 192)."""
+    """One pass where B*Di threads fill the card (Hymba's wave,
+    Falcon-Mamba's batch-8 wave at Di = 8192, and its (4, 1) rank's two
+    rows); else chunks of a multiple of 16 steps (Hymba's refill: 11 of
+    192; Falcon-Mamba's: 4 of 512; its (1, 4) rank's, Di = 2048: 16 of
+    128)."""
     bsz, s, di, n = shape
     length = cuda_mod.chunk_len(bsz, s, di, n)
     assert -(-s // length) == chunks
@@ -236,7 +243,11 @@ CARD = [((1, 2048, 3200, 16), "bfloat16", False),
         ((2, 1000, 96, 4), "float32", True),
         ((3, 130, 70, 8), "float32", False),
         ((2, 64, 33, 32), "float32", True),
-        ((1, 65, 17, 3), "bfloat16", True)]
+        ((1, 65, 17, 3), "bfloat16", True),
+        # Falcon-Mamba-7B (Di = 8192, N = 16): a refill on the chunked
+        # route (4 chunks of 512), a wave of 8 rows in one pass
+        ((1, 2048, 8192, 16), "bfloat16", False),
+        ((8, 512, 8192, 16), "bfloat16", False)]
 
 
 def _card():

@@ -6,8 +6,9 @@ exact; `splice_row` is checked on its own, on the stacked and the hybrid
 (per-layer tuple) cache layouts; the serving CLI must give exactly 6 x 8
 tokens (test_system.py::test_serve_end_to_end) for Llama and Hymba, with
 the decode kernel on in the config it builds; and fp32 engine runs on
-``reduced(llama3_2_1b)`` and ``reduced(hymba_1_5b)`` must produce the JAX
-engine's tokens on carried weights.  Everything runs on the CPU
+``reduced(llama3_2_1b)``, ``reduced(hymba_1_5b)`` and the other families
+(MoE, vision, MLA, enc-dec, SSM and StarCoder2's 9 query heads a kv head)
+must produce the JAX engine's tokens on carried weights.  Everything runs on the CPU
 (``device="cpu"``).
 """
 import os
@@ -314,7 +315,8 @@ def test_serving_imports_nothing_of_jax():
         import repro_torch.kernels.selective_scan.ops
         import repro_torch.models.ssm
         from repro_torch.launch.serve import main
-        for arch in ("llama3_2_1b", "hymba_1_5b", "falcon_mamba_7b"):
+        for arch in ("llama3_2_1b", "hymba_1_5b", "falcon_mamba_7b",
+                     "starcoder2_7b"):
             st = main(["--arch", arch, "--preset", "smoke", "--requests",
                        "2", "--batch", "2", "--prompt-len", "4", "--gen",
                        "3", "--max-len", "16", "--device", "cpu"])
@@ -443,6 +445,22 @@ def test_encdec_engine_tokens_equal_the_jax_engine_on_carried_weights():
     does; refills splice the self-attention cache and the cross (k, v)
     tuple into their rows (see _engine_tokens_match)."""
     _engine_tokens_match("whisper_base", (6, 6, 9, 7, 6), max_len=32)
+
+
+def test_ssm_engine_tokens_equal_the_jax_engine_on_carried_weights():
+    """Reduced Falcon-Mamba (the SSM family: no attention, the stacked
+    conv history and state of every layer the whole cache): refills
+    splice a prompt's conv history and state into their row of the
+    batched cache (see _engine_tokens_match)."""
+    _engine_tokens_match("falcon_mamba_7b", (6, 6, 9, 7, 6), max_len=32)
+
+
+def test_starcoder2_engine_tokens_equal_the_jax_engine_on_carried_weights():
+    """Reduced StarCoder2 at its published ratio of 9 query heads a kv
+    head (18/2, H=16) and its two-matrix tanh-GELU FFN: a wave, then
+    refills spliced into the batched cache (see _engine_tokens_match)."""
+    _engine_tokens_match("starcoder2_7b", (6, 6, 9, 7, 6), max_len=32,
+                         num_heads=18, num_kv_heads=2)
 
 
 def test_port_modules_and_chip_smoke_import_nothing_of_jax():

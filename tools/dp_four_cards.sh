@@ -20,33 +20,8 @@
 #   bash tools/dp_four_cards.sh              # one host with four H100s
 set -u
 out=chiprun_out/dp4
-mkdir -p "$out" build
-export PYTHONPATH=src
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
-    | tee "$out/card.txt"
-python -c 'import sys, torch; print(sys.version, torch.__version__,
-           torch.version.cuda, torch.cuda.device_count())' | tee -a "$out/card.txt"
-free -b | tee -a "$out/card.txt"
-status=0
-run() {  # name, command...: the command's output to $out/name.txt
-    local name=$1
-    shift
-    local t0=$SECONDS
-    (while true; do free -b | awk '/^Mem:/ {print $3}'; sleep 2; done) \
-        > "$out/mem_$name.txt" &
-    local sampler=$!
-    timeout -k 10 900 "$@" > "$out/$name.txt" 2>&1
-    local rc=$?
-    kill $sampler
-    wait $sampler 2>/dev/null
-    local peak
-    peak=$(sort -n "$out/mem_$name.txt" | tail -n 1)
-    echo "$name: exit $rc in $((SECONDS - t0)) s, host memory used at" \
-        "most $peak bytes" | tee -a "$out/summary.txt"
-    grep -h '^\[serve\]' "$out/$name.txt" | tee -a "$out/summary.txt"
-    tail -n 2 "$out/$name.txt"
-    [ $rc -eq 0 ] || status=$rc
-}
+run_timeout=900
+source tools/four_cards_common.sh
 llama=(--arch llama3_2_1b --preset full --requests 64 --gen 64
        --prompt-len 96 --prompt-len-max 160 --max-len 1024 --memory-gb 4)
 run gpu_tests python -m pytest -q --noconftest -m gpu -p no:cacheprovider \

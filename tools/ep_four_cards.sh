@@ -16,32 +16,7 @@
 #   bash tools/ep_four_cards.sh   # one host with four H100s
 set -u
 out=chiprun_out/ep4
-mkdir -p "$out" build
-export PYTHONPATH=src
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
-    | tee "$out/card.txt"
-python -c 'import sys, torch; print(sys.version, torch.__version__,
-           torch.version.cuda, torch.cuda.device_count())' | tee -a "$out/card.txt"
-free -b | tee -a "$out/card.txt"
-status=0
-run() {  # name, command...: the command's output to $out/name.txt
-    local name=$1
-    shift
-    local t0=$SECONDS
-    (while true; do free -b | awk '/^Mem:/ {print $3}'; sleep 2; done) \
-        > "$out/mem_$name.txt" &
-    local sampler=$!
-    "$@" > "$out/$name.txt" 2>&1
-    local rc=$?
-    kill $sampler
-    wait $sampler 2>/dev/null
-    local peak
-    peak=$(sort -n "$out/mem_$name.txt" | tail -n 1)
-    echo "$name: exit $rc in $((SECONDS - t0)) s, host memory used at" \
-        "most $peak bytes" | tee -a "$out/summary.txt"
-    tail -n 3 "$out/$name.txt"
-    [ $rc -eq 0 ] || status=$rc
-}
+source tools/four_cards_common.sh
 run gpu_tests python -m pytest -q --noconftest -m gpu -p no:cacheprovider \
     tests/test_torch_ep.py -s
 run serve_mixtral torchrun --nproc-per-node 4 --master-port 29621 \

@@ -14,23 +14,7 @@
 #   bash tools/sp_four_cards.sh   # one host with four H100s
 set -u
 out=chiprun_out/sp4
-mkdir -p "$out" build
-export PYTHONPATH=src
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
-    | tee "$out/card.txt"
-python -c 'import sys, torch; print(sys.version, torch.__version__,
-           torch.version.cuda, torch.cuda.device_count())' | tee -a "$out/card.txt"
-status=0
-run() {  # name, command...: the command's output to $out/name.txt
-    local name=$1
-    shift
-    local t0=$SECONDS
-    "$@" > "$out/$name.txt" 2>&1
-    local rc=$?
-    echo "$name: exit $rc in $((SECONDS - t0)) s" | tee -a "$out/summary.txt"
-    tail -n 3 "$out/$name.txt"
-    [ $rc -eq 0 ] || status=$rc
-}
+source tools/four_cards_common.sh
 run gpu_tests python -m pytest -q --noconftest -m gpu -p no:cacheprovider \
     tests/test_torch_sp.py tests/test_torch_int8_mesh.py -s
 port=29620
@@ -39,5 +23,5 @@ for cell in train int8 prefill; do
     run "cell_$cell" torchrun --nproc-per-node 4 --master-port $port \
         tools/sp_cells.py --cell "$cell" --out "$out/cells.jsonl"
 done
-free -g | tee -a "$out/summary.txt"
+free -b | tee -a "$out/summary.txt"
 exit $status

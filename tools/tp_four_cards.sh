@@ -9,23 +9,7 @@
 #   bash tools/tp_four_cards.sh   # one host with four H100s
 set -u
 out=chiprun_out/tp4
-mkdir -p "$out" build
-export PYTHONPATH=src
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
-    | tee "$out/card.txt"
-python -c 'import sys, torch; print(sys.version, torch.__version__,
-           torch.version.cuda, torch.cuda.device_count())' | tee -a "$out/card.txt"
-status=0
-run() {  # name, command...: the command's output to $out/name.txt
-    local name=$1
-    shift
-    local t0=$SECONDS
-    "$@" > "$out/$name.txt" 2>&1
-    local rc=$?
-    echo "$name: exit $rc in $((SECONDS - t0)) s" | tee -a "$out/summary.txt"
-    tail -n 3 "$out/$name.txt"
-    [ $rc -eq 0 ] || status=$rc
-}
+source tools/four_cards_common.sh
 run gpu_tests python -m pytest -q --noconftest -m gpu -p no:cacheprovider \
     tests/test_torch_parallel.py tests/test_torch_tp.py -s
 port=29600
@@ -41,5 +25,5 @@ run serve_deepseek_67b torchrun --nproc-per-node 4 --master-port 29611 \
     -m repro_torch.launch.serve --arch deepseek_67b --preset full \
     --mesh 1x4 --requests 16 --batch 8 --gen 64 \
     --prompt-len 256 --prompt-len-max 1024 --max-len 2048 --memory-gb 8
-free -g | tee -a "$out/summary.txt"
+free -b | tee -a "$out/summary.txt"
 exit $status
