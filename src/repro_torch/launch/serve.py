@@ -13,8 +13,10 @@ requests recovered from the durable tier.  It runs on the card unless
 ``--device cpu`` is given; ``--preset full`` serves the published config
 (with seeded random weights), cut to ``--layers`` decoder layers where
 it asks for it.  ``main()`` returns the engine's stats dict, with the
-wall time, tokens a second, peak device memory (``max_memory_allocated``)
-and the process's peak resident host memory.
+wall time, tokens a second, peak device memory (``max_memory_allocated``),
+the process's peak resident host memory, the requests' mean queue wait
+(submit to admission into a row) and their 95th-percentile time to first
+token (nearest rank).
 
 Over a multi-device pilot: ``--mesh DxM`` under ``torchrun`` (one rank a
 card, ``torchrun --nproc-per-node D*M -m repro_torch.launch.serve --mesh
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import resource
 import time
@@ -97,6 +100,8 @@ def main(argv=None):
                          "capacity groups nest in them), the "
                          "model tensor-parallel over M")
     args = ap.parse_args(argv)
+    if args.requests < 1:
+        ap.error("--requests must be at least 1")
 
     cfg = scaled_config(args.arch, args.preset)
     if args.layers is not None:
@@ -171,6 +176,10 @@ def _serve(args, cfg, model, prompts, dev, mesh_shape, ckpt_dir, say):
                                        f"{len(r.result())} tokens, "
                                        f"expected {args.gen}")
             stats["tokens"] = [r.result() for r in reqs]
+            waits = [r.queue_s for r in reqs]
+            ttfts = sorted(r.ttft_s for r in reqs)
+            stats["queue_wait_ms"] = 1e3 * sum(waits) / len(waits)
+            stats["ttft_p95_s"] = ttfts[math.ceil(0.95 * len(ttfts)) - 1]
         # the passes every rank shares (a data group with no active row
         # skips its decode, but not the pass)
         steps = max(1, stats["decode_passes"])
@@ -198,7 +207,9 @@ def _serve(args, cfg, model, prompts, dev, mesh_shape, ckpt_dir, say):
             f"cache {stats['cache_bytes'] / 1e9:.3f} GB a rank, "
             f"refills={stats['refills']}, "
             f"recovered={stats['recovered_requests']}, "
-            f"kernel launches {stats['launches']}")
+            f"kernel launches {stats['launches']}, "
+            f"mean queue wait {stats['queue_wait_ms']:.0f}ms, "
+            f"p95 first token {stats['ttft_p95_s'] * 1e3:.0f}ms")
         return stats
 
 

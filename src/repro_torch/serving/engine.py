@@ -88,6 +88,12 @@ finished rows ARE refilled (a pending prompt is dequeued, prefilled as a
 batch-of-1 and spliced into the freed row of the batched cache), and
 retired/padded rows are masked out of both sampling and the throughput
 accounting (``tokens_served`` counts active rows only).
+
+While a caller has a span recording on (``serving/spans.py``), deploy,
+the runtime's build and every phase of a loop pass record spans: ``pass``
+holds ``admit``, ``refill`` (keyed by the request's rid), ``sample``
+(through the tokens' ``.cpu()``), ``retire`` (holding ``flush_pages``)
+and ``decode`` (the host's enqueue of one step).
 """
 from __future__ import annotations
 
@@ -107,6 +113,7 @@ from repro_torch.core.pilot import ComputeUnitDescription, State
 from repro_torch.core.taskengine import read_partition
 from repro_torch.models.common import (gather_vocab, tree_leaves,
                                        vocab_argmax)
+from repro_torch.serving.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -192,11 +199,15 @@ class ServeRequest:
     DataUnit; ``ctx`` is the sequence to prefill when (re)entering a
     batch row — the prompt initially, the recovered prompt+generated
     pages after a failover; ``prior`` is the recovered generated prefix,
-    so ``prior + fresh tokens == max_new_tokens`` exactly."""
+    so ``prior + fresh tokens == max_new_tokens`` exactly.  Its stamps,
+    all ``time.perf_counter`` seconds: ``t_submit``; ``t_admit``, when a
+    pass first hands it to a row; ``t_first``, when its first token first
+    reaches the host; ``t_done``.  A recovered request keeps its first
+    ``t_admit`` and ``t_first``."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "ctx", "prior",
                  "tokens", "error", "pilot_id", "recoveries",
-                 "t_submit", "t_done", "_done")
+                 "t_submit", "t_admit", "t_first", "t_done", "_done")
 
     def __init__(self, rid: int, prompt: np.ndarray, max_new_tokens: int):
         self.rid = rid
@@ -209,6 +220,8 @@ class ServeRequest:
         self.pilot_id: Optional[str] = None
         self.recoveries = 0
         self.t_submit = time.perf_counter()
+        self.t_admit: Optional[float] = None
+        self.t_first: Optional[float] = None
         self.t_done: Optional[float] = None
         self._done = threading.Event()
 
@@ -219,6 +232,16 @@ class ServeRequest:
     @property
     def latency_s(self) -> Optional[float]:
         return None if self.t_done is None else self.t_done - self.t_submit
+
+    @property
+    def queue_s(self) -> Optional[float]:
+        """Seconds from submit to its first admission into a row."""
+        return None if self.t_admit is None else self.t_admit - self.t_submit
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Seconds from submit to its first token on the host."""
+        return None if self.t_first is None else self.t_first - self.t_submit
 
     def result(self, timeout: Optional[float] = None) -> List[int]:
         if not self._done.wait(timeout):
@@ -394,6 +417,10 @@ class ServingEngine:
         reaper.  Idempotent."""
         if self._deployed:
             return self
+        with span("deploy"):
+            return self._deploy(reaper_interval_s)
+
+    def _deploy(self, reaper_interval_s: float) -> "ServingEngine":
         pilots = [p for p in self.session.pilots
                   if p.state is State.RUNNING]
         if not pilots:
@@ -419,17 +446,19 @@ class ServingEngine:
             dist.broadcast(torch.zeros(1, device=pilots[0].devices[0]),
                            src=int(self._mesh.mesh.flatten()[0]),
                            group=self._mesh_group())
-        np_leaves = self._shard_leaves()
+        with span("deploy.shard"):
+            np_leaves = self._shard_leaves()
         self._n_shards = len(np_leaves)
         pds = self.session.data_service
         durable = pds.checkpoint_store is not None
         repl = (self._replication if self._replication is not None
                 else min(2, len(pilots)))
-        self.shards = self.session.data_parts(
-            f"{self.name}.shards", np_leaves, tier="host",
-            persist=durable, replication=repl)
-        self.kv = self.session.data_parts(
-            f"{self.name}.kv", [], tier="host", persist=False)
+        with span("deploy.place"):
+            self.shards = self.session.data_parts(
+                f"{self.name}.shards", np_leaves, tier="host",
+                persist=durable, replication=repl)
+            self.kv = self.session.data_parts(
+                f"{self.name}.kv", [], tier="host", persist=False)
         self._durable = durable
         self._deployed = True
         for p in pilots:
@@ -498,8 +527,9 @@ class ServingEngine:
         on the pilot's worker pool."""
         pds = self.session.data_service
         if pds.knows(pilot.id):
-            pds.replicate_to_pilot(self.shards, pilot.id, tier="host",
-                                   pin=True)
+            with span("deploy.pin"):
+                pds.replicate_to_pilot(self.shards, pilot.id, tier="host",
+                                       pin=True)
         rep = _Replica(pilot)
         rep.task = self.session.manager.engine.submit_resident(
             self._serve_loop, rep, pilot=pilot,
@@ -589,9 +619,10 @@ class ServingEngine:
         cache so a second loop on the same pilot pays nothing."""
         def build():
             dev = pilot.devices[0]
-            leaves = [tensor_from_numpy(read_partition(self.shards, i), dev,
-                                        bfloat16=self._bf16[i])
-                      for i in range(self._n_shards)]
+            with span("runtime.build"):
+                leaves = [tensor_from_numpy(read_partition(self.shards, i),
+                                            dev, bfloat16=self._bf16[i])
+                          for i in range(self._n_shards)]
             params = unflatten_params(self._paths, leaves)
             model, max_len = self.model, self.max_len
 
@@ -758,63 +789,83 @@ class ServingEngine:
                 row_out[r] = []
                 positions[r] = len(req.ctx) + vision - 1
 
+        n = 0
         while True:
-            # -- refill freed rows (the missing piece of the old loop) --
-            free = [r for r in range(B) if rows[r] is None]
-            idle = all(q is None for q in rows)
-            stop, admit = self._admit(rep, free, cache is None, idle, dev)
-            if stop:
-                if (not rep.stop.is_set()
-                        and pilot.state is not State.RUNNING):
-                    # node loss: abandon the rows — the reaper recovers
-                    # every owed request from the durable KV pages
-                    rep.dead = True
-                    with self._lock:
-                        self.counters["replica_deaths"] += 1
-                return served
-            if admit and cache is None:
-                fill_wave(admit)
-            else:
-                for r, req in zip(free, admit):
-                    fill_row(r, req)
-            active = np.array([q is not None for q in rows])
-            if not active.any():
-                continue
-            # -- sample (inactive rows masked), account, retire ----------
-            tok = sample_tokens(logits, to_device(active[lo:hi], dev), gen,
-                                self.temperature,
-                                getattr(self.cfg, "vocab_size", None))
-            tok_np = self._gather_rows(tok).cpu().numpy()
-            n_active = int(active.sum())
-            with self._lock:
-                self.counters["tokens_served"] += n_active
-            for r in range(B):
-                req = rows[r]
-                if req is None:
+            n += 1
+            with span("pass", n):
+                # -- refill freed rows (the missing piece of the old loop)
+                free = [r for r in range(B) if rows[r] is None]
+                idle = all(q is None for q in rows)
+                with span("admit"):
+                    stop, admit = self._admit(rep, free, cache is None,
+                                              idle, dev)
+                    if admit:
+                        now = time.perf_counter()
+                        for req in admit:
+                            if req.t_admit is None:
+                                req.t_admit = now
+                if stop:
+                    if (not rep.stop.is_set()
+                            and pilot.state is not State.RUNNING):
+                        # node loss: abandon the rows — the reaper
+                        # recovers every owed request from the durable
+                        # KV pages
+                        rep.dead = True
+                        with self._lock:
+                            self.counters["replica_deaths"] += 1
+                    return served
+                if admit and cache is None:
+                    with span("refill", admit[0].rid):
+                        fill_wave(admit)
+                else:
+                    for r, req in zip(free, admit):
+                        with span("refill", req.rid):
+                            fill_row(r, req)
+                active = np.array([q is not None for q in rows])
+                if not active.any():
                     continue
-                row_out[r].append(int(tok_np[r]))
-                row_gen[r] += 1
-                remaining = req.max_new_tokens - len(req.prior)
-                finished = row_gen[r] >= remaining
-                if finished or row_gen[r] % self.page_tokens == 0:
-                    self._flush_pages(req, row_out[r])
-                if finished:
-                    self._complete(req, list(req.prior) + row_out[r])
-                    rows[r] = None
-                    rep.active.pop(r, None)
-                    served += 1
-            still = np.array([q is not None for q in rows])
-            positions[still] += 1
-            if still.any():
-                with self._lock:
-                    self.counters["decode_passes"] += 1
-            if still[lo:hi].any():  # a group with no active row skips
-                logits, cache = rt.decode(rt.params, cache, tok[:, None],
-                                          to_device(positions[lo:hi], dev))
-                with self._lock:
-                    self.counters["decode_steps"] += 1
-            if hasattr(pilot, "beat"):
-                pilot.beat()    # a busy decode loop vouches for liveness
+                # -- sample (inactive rows masked), account, retire ------
+                with span("sample"):
+                    tok = sample_tokens(logits, to_device(active[lo:hi], dev),
+                                        gen, self.temperature,
+                                        getattr(self.cfg, "vocab_size", None))
+                    tok_np = self._gather_rows(tok).cpu().numpy()
+                    t_tok = time.perf_counter()
+                with span("retire"):
+                    n_active = int(active.sum())
+                    with self._lock:
+                        self.counters["tokens_served"] += n_active
+                    for r in range(B):
+                        req = rows[r]
+                        if req is None:
+                            continue
+                        if req.t_first is None:
+                            req.t_first = t_tok
+                        row_out[r].append(int(tok_np[r]))
+                        row_gen[r] += 1
+                        remaining = req.max_new_tokens - len(req.prior)
+                        finished = row_gen[r] >= remaining
+                        if finished or row_gen[r] % self.page_tokens == 0:
+                            self._flush_pages(req, row_out[r])
+                        if finished:
+                            self._complete(req, list(req.prior) + row_out[r])
+                            rows[r] = None
+                            rep.active.pop(r, None)
+                            served += 1
+                    still = np.array([q is not None for q in rows])
+                    positions[still] += 1
+                    if still.any():
+                        with self._lock:
+                            self.counters["decode_passes"] += 1
+                if still[lo:hi].any():  # a group with no active row skips
+                    with span("decode"):
+                        logits, cache = rt.decode(
+                            rt.params, cache, tok[:, None],
+                            to_device(positions[lo:hi], dev))
+                        with self._lock:
+                            self.counters["decode_steps"] += 1
+                if hasattr(pilot, "beat"):
+                    pilot.beat()    # a busy decode loop vouches for liveness
 
     def _complete(self, req: ServeRequest, tokens: List[int]) -> None:
         """Finish a request exactly once: a replica finishing a request
@@ -831,12 +882,13 @@ class ServingEngine:
         """Rewrite the request's KV-page partition (prompt + everything
         generated) in the home tier and write it through to the durable
         checkpoint home — the state a failover re-prefills from."""
-        full = np.concatenate([
-            req.prompt,
-            np.asarray(req.prior + out, dtype=np.int32)])
-        self.kv.update_partition(req.rid, full)
-        if self._durable:
-            self.kv.persist(parts=[req.rid])
+        with span("flush_pages", req.rid):
+            full = np.concatenate([
+                req.prompt,
+                np.asarray(req.prior + out, dtype=np.int32)])
+            self.kv.update_partition(req.rid, full)
+            if self._durable:
+                self.kv.persist(parts=[req.rid])
 
     # -- failover --------------------------------------------------------
     def _reaper_loop(self, interval_s: float) -> None:

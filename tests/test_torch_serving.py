@@ -11,11 +11,14 @@ the decode kernel on in the config it builds; and fp32 engine runs on
 must produce the JAX engine's tokens on carried weights.  Everything runs on the CPU
 (``device="cpu"``).
 """
+import collections
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import textwrap
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -28,7 +31,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import PilotSession  # noqa: E402
 from repro_torch.core.pilot import State  # noqa: E402
 from repro_torch.models.common import ParamSpec  # noqa: E402
-from repro_torch.serving import ServingEngine, splice_row  # noqa: E402
+from repro_torch.serving import ServingEngine, spans, splice_row  # noqa: E402
 from repro_torch.serving.engine import (flatten_params,  # noqa: E402
                                         sample_tokens, unflatten_params)
 
@@ -153,6 +156,7 @@ def test_engine_recovers_requests_after_pilot_kill():
                 time.sleep(0.25)       # let decode get going on both pilots
                 victim = next((rep.pilot for rep in eng._replicas.values()
                                if rep.active), pilots[0])
+                admitted = {r.rid: r.t_admit for r in reqs if r.t_admit}
                 victim.state = State.FAILED
                 if victim.tier_manager is not None:
                     victim.tier_manager.lose_volatile()
@@ -163,6 +167,143 @@ def test_engine_recovers_requests_after_pilot_kill():
     assert st["completed"] == 4        # zero data loss
     assert st["recovered_requests"] >= 1
     assert st["replica_deaths"] >= 1
+    _assert_stamps_in_order(reqs)
+    # a request recovered from a row keeps its first admission
+    assert any(reqs[rid].recoveries for rid in admitted)
+    assert all(reqs[rid].t_admit == t for rid, t in admitted.items())
+
+
+def _assert_stamps_in_order(reqs):
+    for r in reqs:
+        assert r.t_submit <= r.t_admit <= r.t_first <= r.t_done, r
+        assert r.queue_s == r.t_admit - r.t_submit
+        assert r.ttft_s == r.t_first - r.t_submit
+
+
+# -- spans ------------------------------------------------------------------
+def _serve_stub(prompts, gens, record, batch=2, page_tokens=4):
+    """Serve `prompts` on one pilot with the stub model -> (requests,
+    the span recording or None)."""
+    rec = spans.start() if record else None
+    try:
+        with PilotSession(device="cpu") as s:
+            s.add_pilots(1, memory_gb=0.25)
+            with ServingEngine(s, _StubModel(), batch_size=batch, max_len=32,
+                               page_tokens=page_tokens) as eng:
+                eng.deploy()
+                reqs = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+                eng.drain(timeout=60)
+    finally:
+        if record:
+            spans.stop()
+    for p, g, r in zip(prompts, gens, reqs):
+        assert r.result(timeout=5) == _expected(p, g)
+    _assert_stamps_in_order(reqs)
+    return reqs, rec
+
+
+# distinct prompt lengths: the first wave admits one request, so every
+# request enters a row through one refill of its own
+_PROMPTS = [np.arange(3 + i, dtype=np.int32) % 32 for i in range(5)]
+_GENS = [3, 9, 5, 4, 8]
+
+
+def test_spans_off_record_nothing_and_leave_tokens_exact():
+    assert spans._current is None
+    assert spans.span("pass", 1) is spans.span("decode") is spans._OFF
+    _serve_stub(_PROMPTS, _GENS, record=False)
+    assert spans._current is None
+
+
+def test_spans_of_each_pass_in_order_with_their_parents():
+    reqs, rec = _serve_stub(_PROMPTS, _GENS, record=True)
+    assert rec.dropped == 0 and spans._current is None
+    by_id = {r.id: r for r in rec.records}
+    passes = [r for r in rec.records if r.name == "pass"]
+    assert passes and len({r.tid for r in passes}) == 1
+    decoded = 0
+    for p in passes:
+        kids = sorted((r for r in rec.records if r.parent == p.id),
+                      key=lambda r: r.t0_ns)
+        names = " ".join(r.name for r in kids)
+        assert re.fullmatch(r"admit( refill)*( sample retire( decode)?)?",
+                            names), names
+        decoded += names.endswith("decode")
+        assert all(p.t0_ns <= k.t0_ns <= k.t1_ns <= p.t1_ns for k in kids)
+        assert all(k.tid == p.tid for k in kids)
+    assert decoded == sum(r.name == "decode" for r in rec.records) > 0
+    # each request is refilled once, under its own rid
+    refills = [r.key for r in rec.records if r.name == "refill"]
+    assert sorted(refills) == sorted(r.rid for r in reqs)
+    # a flush every `page_tokens` tokens and at the last, under `retire`
+    flushes = [r for r in rec.records if r.name == "flush_pages"]
+    assert all(by_id[f.parent].name == "retire" for f in flushes)
+    assert collections.Counter(f.key for f in flushes) == {
+        r.rid: -(-g // 4) for r, g in zip(reqs, _GENS)}
+    # deploy, its three children, and the runtime's build on the loop
+    # thread
+    once = collections.Counter(r.name for r in rec.records
+                               if r.name.startswith(("deploy", "runtime")))
+    assert once == {"deploy": 1, "deploy.shard": 1, "deploy.place": 1,
+                    "deploy.pin": 1, "runtime.build": 1}
+    deploy = next(r for r in rec.records if r.name == "deploy")
+    assert {by_id[r.parent].name for r in rec.records if r.name in (
+        "deploy.shard", "deploy.place", "deploy.pin")} == {"deploy"}
+    build = next(r for r in rec.records if r.name == "runtime.build")
+    assert build.parent is None and build.tid == passes[0].tid != deploy.tid
+    # on one pilot its loop starts after the pin: the round trip's four
+    # spans follow each other
+    trip = [next(r for r in rec.records if r.name == n) for n in (
+        "deploy.shard", "deploy.place", "deploy.pin", "runtime.build")]
+    assert all(a.t1_ns <= b.t0_ns for a, b in zip(trip, trip[1:]))
+
+
+def test_span_recording_nests_per_thread_caps_and_stops(monkeypatch):
+    monkeypatch.setattr(spans, "CAP", 3)
+    rec = spans.start()
+    try:
+        with pytest.raises(RuntimeError, match="already on"):
+            spans.start()
+        with spans.span("a", 7):
+            t = threading.Thread(target=lambda: spans.span("t").__enter__()
+                                 .__exit__(None, None, None))
+            t.start()
+            t.join(timeout=10)
+            assert not t.is_alive()
+            with spans.span("b"):
+                pass
+        with spans.span("c"):
+            pass
+    finally:
+        assert spans.stop() is rec
+    assert spans.stop() is None
+    t_rec, b, a = rec.records
+    assert (t_rec.name, t_rec.parent) == ("t", None)   # its own thread's top
+    assert (b.name, b.parent, a.name, a.key, a.parent) == (
+        "b", a.id, "a", 7, None)
+    assert rec.dropped == 1                              # "c", over the cap
+
+
+def test_span_clock_maps_onto_the_profilers():
+    """A span around a `record_function` block, mapped through the
+    recording's anchor, holds the profiler's event to within 1 ms."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    rec = spans.start()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with spans.span("outer"):
+                with record_function("inner"):
+                    time.sleep(0.005)
+    finally:
+        spans.stop()
+    ev = next(e for e in prof.profiler.kineto_results.events()
+              if e.name() == "inner")
+    (sp,) = rec.records
+    perf, unix = rec.anchor
+    a, b = sp.t0_ns - perf + unix, sp.t1_ns - perf + unix
+    assert a - 1_000_000 <= ev.start_ns()
+    assert ev.start_ns() + ev.duration_ns() <= b + 1_000_000
+    assert ev.duration_ns() >= 5_000_000
 
 
 # -- pieces ----------------------------------------------------------------
@@ -252,11 +393,16 @@ def _serve_cli(arch, monkeypatch):
     return stats, built
 
 
-def test_serve_cli_end_to_end_exact_tokens(monkeypatch):
+def test_serve_cli_end_to_end_exact_tokens(monkeypatch, capsys):
     """The CLI serves exactly 6 x 8 tokens, and the config it builds has
     the decode kernel on (on the card `decode_attention_op` launches it;
-    here it runs its plain version)."""
+    here it runs its plain version); its line ends with the requests'
+    mean queue wait and 95th-percentile time to first token."""
     stats, built = _serve_cli("llama3_2_1b", monkeypatch)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.search(r", mean queue wait \d+ms, p95 first token \d+ms$",
+                     line), line
+    assert 0 <= stats["queue_wait_ms"] / 1e3 <= stats["ttft_p95_s"]
     assert stats["completed"] == 6
     assert stats["tokens_served"] == 6 * 8  # exact: no phantom row tokens
     assert stats["decode_steps"] > 0
