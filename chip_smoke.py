@@ -19,6 +19,15 @@ kernels' launch counts set to 0 just before and read just after:
   a pilot added by hand gives the rebalancer skew to move; held to an
   undisturbed run of the same seed; then one pilot on each simulated
   substrate for the paper's Fig. 6 provisioning ratios;
+- the decode step as one CUDA graph (``models/decode_graphs.py``) against
+  the eager step: StarCoder2-7B and Falcon-Mamba-7B at their published
+  widths, 2 layers, 8 rows, 64 greedy steps with a ``splice_row`` refill
+  at step 20; the tokens identical, the last logits and every cache and
+  state leaf bit-equal, 1 capture and 63 replays, the launch counts of
+  both runs equal, the graph's kernels seen by the profiler; every
+  one-card serving phase below then decodes through the graph (one
+  capture a replica, a replay every other step), the (1, 1) pilot mesh's
+  eagerly;
 - serving Llama-3.2-1B at its published widths (random weights from a
   seed) by ServingEngine on a PilotSession pilot, 16 requests at batch 8
   (kernels flash_attention in each prefill, on the tensor cores since the
@@ -117,6 +126,7 @@ repository.  It imports nothing of JAX or of the JAX package.
 
 Output: progress lines, then the card's name and power limit, a
 ``{"rank_split": {...}}`` line, an ``{"examples": {...}}`` line, a
+``{"decode_graphs": {...}}`` line, a
 ``{"training": {...}}`` line, an
 ``{"elastic": {...}}`` line, a ``{"kernels": [...]}`` line, and as the
 last line
@@ -200,6 +210,12 @@ FALCON_PROMPT_LENS = (512, 1024, 2048)
 # tokens into 8192 slots (a 4.3 GB cache at batch 8)
 STARCODER_CHECK_LAYERS, STARCODER_CHECK_LEN = 4, 1024
 STARCODER_MAX_LEN, STARCODER_PROMPT_LENS = 8192, (1024, 2048, 4096)
+# the decode step as one CUDA graph against the eager step: StarCoder2-7B
+# and Falcon-Mamba-7B at their published widths, 2 layers each, 8 rows of
+# 512-token prompts, 64 greedy steps, row 3 refilled at step 20 with a
+# 300-token prompt (``splice_row``), 1024 slots
+GRAPH_CHECK_LAYERS, GRAPH_CHECK_STEPS, GRAPH_CHECK_REFILL = 2, 64, 20
+GRAPH_CHECK_LEN, GRAPH_CHECK_REFILL_LEN, GRAPH_CHECK_MAX_LEN = 512, 300, 1024
 
 
 def log(*args) -> None:
@@ -602,6 +618,105 @@ def breakdown(per: dict) -> dict:
     return out
 
 
+def decode_graph_phase(torch, kernels: dict) -> dict:
+    """The decode step as one CUDA graph against the eager step
+    (``decode_graphs.step``) on the card, for StarCoder2-7B (GQA at 36/4,
+    decode_attention) and Falcon-Mamba-7B (the conv and state updates,
+    which are not idempotent) at their published widths and
+    GRAPH_CHECK_LAYERS layers: a wave of 8 prompts, GRAPH_CHECK_STEPS
+    greedy steps, row 3 refilled at step GRAPH_CHECK_REFILL by
+    ``splice_row`` as the engine does.  The graph run must give the eager
+    run's tokens, its last logits and every cache and state leaf bit for
+    bit, count one capture and the other steps as replays, and count the
+    eager run's launches; one replay under the profiler must show the
+    graph's kernels.  Returns, by model, the ms a step of each run
+    (synchronised at the end of the 64) and the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import splice_row
+
+    out = {}
+    for arch in ("starcoder2_7b", "falcon_mamba_7b"):
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=GRAPH_CHECK_LAYERS)
+        model = build_model(cfg)
+        graphs = model.decode_graphs
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        b, s = SERVE_BATCH, GRAPH_CHECK_LEN
+        prompts = hymba_inputs(torch, cfg, b, s, seed=7)
+        refill = hymba_inputs(torch, cfg, 1, GRAPH_CHECK_REFILL_LEN, seed=8)
+
+        @torch.inference_mode()     # the engine's loop splices in place
+        def run(decode):
+            logits, cache = model.prefill(params, {"tokens": prompts},
+                                          GRAPH_CHECK_MAX_LEN)
+            pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+            toks = []
+            zero_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(GRAPH_CHECK_STEPS):
+                if t == GRAPH_CHECK_REFILL:
+                    row_logits, row_cache = model.prefill(
+                        params, {"tokens": refill}, GRAPH_CHECK_MAX_LEN)
+                    cache = splice_row(cache, row_cache, 3)
+                    logits[3] = row_logits[0]
+                    pos[3] = GRAPH_CHECK_REFILL_LEN
+                tok = logits.argmax(-1).to(torch.int32)
+                toks.append(tok)
+                logits, cache = decode(params, cache, tok[:, None], pos)
+                pos = pos + 1
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / GRAPH_CHECK_STEPS
+            return (torch.stack(toks), logits, cache, read_counts(kernels),
+                    ms, (tok, pos))
+
+        e_tok, e_logits, e_cache, e_launch, e_ms, _ = run(graphs.step)
+        assert (graphs.captures, graphs.replays) == (0, 0), (
+            graphs.captures, graphs.replays)
+        g_tok, g_logits, g_cache, g_launch, g_ms, last = run(model.decode)
+        counts = (graphs.captures, graphs.replays)
+        assert counts == (1, GRAPH_CHECK_STEPS - 1), counts
+        assert torch.equal(g_tok, e_tok), (
+            f"{arch}: the graph's tokens differ from the eager step's at "
+            f"{int((g_tok != e_tok).sum())} of {g_tok.numel()}")
+        assert torch.equal(g_logits, e_logits), (
+            f"{arch}: last logits differ by "
+            f"{float((g_logits.float() - e_logits.float()).abs().max())}")
+        leaves = list(zip(tree_leaves(g_cache), tree_leaves(e_cache)))
+        bad = [i for i, (a, c) in enumerate(leaves) if not torch.equal(a, c)]
+        assert not bad, f"{arch}: cache leaves {bad} of {len(leaves)} differ"
+        assert g_launch == e_launch, (g_launch, e_launch)
+        # one replay (the cache advances once more) under the profiler
+        tok, pos = last
+        _, wall, per = device_trace(torch, lambda: model.decode(
+            params, g_cache, tok[:, None], pos))
+        parts = breakdown(per)
+        assert graphs.replays == GRAPH_CHECK_STEPS, graphs.replays
+        assert parts["gemm"] > 0, sorted(per)
+        if cfg.attention == "gqa":
+            assert parts["decode_attention"] > 0, sorted(per)
+        out[arch] = {"eager_ms_per_step": e_ms, "graph_ms_per_step": g_ms,
+                     "launches": g_launch, "leaves": len(leaves),
+                     "replay_wall_us": wall * 1e6,
+                     "replay_device_us": sum(parts.values()),
+                     "replay_kernels": len(per)}
+        log(f"decode graph check {arch} ({cfg.num_layers} layers, published "
+            f"widths, B={b}, {GRAPH_CHECK_STEPS} steps, refill at step "
+            f"{GRAPH_CHECK_REFILL}): tokens, last logits and {len(leaves)} "
+            f"cache leaves bit-equal to the eager step's; 1 capture, "
+            f"{GRAPH_CHECK_STEPS - 1} replays; launches {g_launch} both "
+            f"runs; ms a step eager {e_ms:.4f} graph {g_ms:.4f}; one traced "
+            f"replay: wall_us={wall * 1e6:.3f} device_us="
+            f"{sum(parts.values()):.3f} kernels={len(per)}")
+        del params, e_cache, g_cache, model, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def model_phase(torch, cfg, params, *, name="llama3.2-1b", b=SERVE_BATCH,
                 s=128, max_len=SERVE_MAX_LEN, trace=True) -> dict:
     """Kernel vs plain at model level: prefill `b` prompts of `s` tokens
@@ -753,6 +868,12 @@ def serve(torch, core, cfg, params, prompts, kernels: dict, *, max_len: int,
     assert st["tokens_served"] == n * SERVE_GEN, st
     assert st["refills"] >= SERVE_BATCH, st
     assert seen == {"cuda"}, f"runtime params/cache on {seen}"
+    graphs = (st["decode_graph_captures"], st["decode_graph_replays"])
+    if mesh_shape:      # a pilot mesh decodes eagerly
+        assert graphs == (0, 0), graphs
+    else:               # a capture a replica's cache, then replays
+        assert graphs[0] >= 1 and sum(graphs) == st["decode_steps"], (
+            graphs, st)
     return {"stats": st, "wall_s": wall, "launches": launches,
             "setup_s": setup, "peak_bytes": peak, "after": extra,
             "outs": outs}
@@ -768,7 +889,9 @@ def serve_line(name, cfg, res, width="full width") -> str:
             f"refills included), refills={st['refills']} "
             f"waves={st['waves']} p50_latency_s={st['p50_latency_s']:.6f} "
             f"p99_latency_s={st['p99_latency_s']:.6f} launches="
-            f"{res['launches']} ({cfg.num_layers} layers); params+cache on "
+            f"{res['launches']} ({cfg.num_layers} layers); decode graphs "
+            f"{st['decode_graph_captures']} captured "
+            f"{st['decode_graph_replays']} replayed; params+cache on "
             f"cuda; deploy+load {res['setup_s']:.3f} s; peak device memory "
             f"{res['peak_bytes'] / 1e9:.3f} GB")
 
@@ -1337,12 +1460,13 @@ def op_kernels(e) -> list:
 def mixtral_step(torch, cfg, params) -> dict:
     """Where a Mixtral decode step's time goes, on the serving runtime's
     params (the one device copy): 8 prompts of 1024 prefilled into the
-    4096-slot cache, 5 synchronised decode steps timed on the host clock,
-    then one step under the profiler (CPU and CUDA activity): the expert
-    products (the kernels of aten::bmm, which only moe_ffn calls in a decode
-    step), the other GEMMs, decode_attention and the rest, beside the
-    weight-read floor (every weight but the embedding table read once:
-    under the capacity dispatch each decode step runs all 8 experts)."""
+    4096-slot cache, 5 synchronised decode steps timed on the host clock
+    (the decode graph's replays), then one eager step under the profiler
+    (CPU and CUDA activity): the expert products (the kernels of aten::bmm,
+    which only moe_ffn calls in a decode step), the other GEMMs,
+    decode_attention and the rest, beside the weight-read floor (every
+    weight but the embedding table read once: under the capacity dispatch
+    each decode step runs all 8 experts)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1360,10 +1484,12 @@ def mixtral_step(torch, cfg, params) -> dict:
         model.decode(params, cache, tok, pos + i)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+    # the eager step under the profiler: a graph's replay launches its
+    # kernels under no op, and the expert products are read by theirs
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode(params, cache, tok, pos + 6)
+        model.decode_graphs.step(params, cache, tok, pos + 6)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per, bmm = {}, []
@@ -1686,12 +1812,12 @@ def deepseek_step(torch, cfg, params) -> dict:
     """Where a DeepSeek-V3 decode step's time goes, on the serving
     runtime's params (the one device copy): 8 prompts of 1024 prefilled
     into the 2048-slot latent cache, 5 synchronised decode steps timed on
-    the host clock, then one step under the profiler (CPU and CUDA
-    activity) with mla_decode, the dense FFN and moe_ffn each inside a
-    record_function range: the MLA products, the dense FFNs, the expert
-    products (the kernels of aten::bmm under moe_ffn), the rest of the MoE
-    (router, dispatch, shared expert) and everything else, beside the
-    weight-read floor (every weight but the embedding table and the MTP
+    the host clock (the decode graph's replays), then one eager step
+    under the profiler (CPU and CUDA activity) with mla_decode, the dense
+    FFN and moe_ffn each inside a record_function range: the MLA products,
+    the dense FFNs, the expert products (the kernels of aten::bmm under
+    moe_ffn), the rest of the MoE (router, dispatch, shared expert) and
+    everything else, beside the weight-read floor (every weight but the embedding table and the MTP
     module, which decode never reads, read once: the decode-time
     regrouping puts the 8 rows' 64 (token, expert) choices in one group
     with one slot per expert, and the batched products run all 256
@@ -1731,10 +1857,11 @@ def deepseek_step(torch, cfg, params) -> dict:
     for label, (mod, fn) in ranges.items():
         setattr(mod, fn, ranged(label))
     try:
+        # the eager step: a graph's replay runs no op, no range
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.decode(params, cache, tok, pos + 6)
+            model.decode_graphs.step(params, cache, tok, pos + 6)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -3334,6 +3461,13 @@ def main() -> int:
     scan_rows = [check_scan(torch, selective_scan_op, *shape)
                  for shape in scan_shapes]
 
+    # -- 5b. the decode step as one CUDA graph against the eager step -------
+    graph_check = decode_graph_phase(torch, {
+        "decode_attention": (attn_mod, "LAUNCHES"),
+        "decode_attention_tc": (attn_mod, "TC_LAUNCHES"),
+        "flash_attention": (flash_mod, "TC_LAUNCHES"),
+        "selective_scan": (scan_mod, "LAUNCHES")})
+
     # -- 6. the serving path: Llama-3.2-1B at full width ----------------------
     cfg = get_config("llama3_2_1b")
     assert cfg.decode_kernel, "the port's config must decode with the kernel"
@@ -3660,6 +3794,7 @@ def main() -> int:
     log(card)
     log(json.dumps({"rank_split": split}))
     log(json.dumps({"examples": examples}))
+    log(json.dumps({"decode_graphs": graph_check}))
     log(json.dumps({"training": training}))
     log(json.dumps({"elastic": {"serving": eserve["row"],
                                 "kmeans": ekmeans,

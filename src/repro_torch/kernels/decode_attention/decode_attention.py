@@ -21,13 +21,14 @@ CUDA-core route.
 from __future__ import annotations
 
 import ctypes
+import sys
 import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, count_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 TILE = 64            # cache slots per block tile (kTile in the source)
@@ -163,7 +164,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B,Nq,H); k/v_cache (B,Sc,Nkv,H); cache_pos (B,Sc) int32;
     positions (B,) int32; all contiguous on one CUDA device, q/k/v of one
     dtype (float32 or bfloat16) -> (B,Nq,H) in q's dtype."""
-    global LAUNCHES, TC_LAUNCHES, CORE_LAUNCHES
     _check(q, k_cache, v_cache, cache_pos, positions)
     lib = load()
     b, nq, h = q.shape
@@ -190,10 +190,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode_attention: launch failed with CUDA "
                            f"error {err} ({msg})")
-    with _count_lock:
-        LAUNCHES += 1
-        if tc:
-            TC_LAUNCHES += 1
-        else:
-            CORE_LAUNCHES += 1
+    count_launch(sys.modules[__name__], "LAUNCHES",
+                 "TC_LAUNCHES" if tc else "CORE_LAUNCHES")
     return out

@@ -21,12 +21,13 @@ CUDA-core kernel's (one per call, on the route taken).
 from __future__ import annotations
 
 import ctypes
+import sys
 import threading
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, count_launch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"            # fp32, CUDA cores
@@ -120,7 +121,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     all float32 or all bfloat16 -> (B,Sq,Nq,H) in q's dtype.  Query row i
     sits at position i and kv row j at position j.  bfloat16 runs on the
     tensor cores, float32 on the CUDA cores."""
-    global LAUNCHES, TC_LAUNCHES
     _check(q, k, v)
     tc = q.dtype == torch.bfloat16
     lib = load_tc() if tc else load()
@@ -138,9 +138,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   else lib.flash_attention_error_string)
         raise RuntimeError(f"flash_attention: launch failed with CUDA error "
                            f"{err} ({errstr(err).decode()})")
-    with _count_lock:
-        if tc:
-            TC_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
+    count_launch(sys.modules[__name__], "TC_LAUNCHES" if tc else "LAUNCHES")
     return out

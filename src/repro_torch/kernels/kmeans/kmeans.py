@@ -16,13 +16,14 @@ the CPU tests import this module freely.
 from __future__ import annotations
 
 import ctypes
+import sys
 import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, count_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "kmeans.cu"
 TILE = 256           # threads per block = points per tile (kThreads)
@@ -158,7 +159,6 @@ def _check(points: torch.Tensor, centroids: torch.Tensor) -> None:
 def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor):
     """points (N,D), centroids (K,D) on one CUDA device, both float32 or
     both bfloat16 -> (sums (K,D), counts (K,), sse ()) in float32."""
-    global LAUNCHES
     _check(points, centroids)
     lib = load()
     n, d = points.shape
@@ -184,6 +184,5 @@ def kmeans_assign(points: torch.Tensor, centroids: torch.Tensor):
         msg = lib.kmeans_error_string(err).decode()
         raise RuntimeError(f"kmeans_assign: launch failed with CUDA error "
                            f"{err} ({msg})")
-    with _count_lock:
-        LAUNCHES += 1
+    count_launch(sys.modules[__name__], "LAUNCHES")
     return sums, counts, sse

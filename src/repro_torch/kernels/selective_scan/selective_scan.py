@@ -18,13 +18,14 @@ call: the local and final passes of a chunked run count as one).
 from __future__ import annotations
 
 import ctypes
+import sys
 import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _nvcc
+from repro_torch.kernels import _nvcc, count_launch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 MAX_STATE = 32       # states per channel: 8 per thread, at most 4 threads
@@ -119,7 +120,6 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bfloat16); dt (B,S,Di), a (Di,N), d_skip (Di,) and h0 (B,Di,N) or None
     in float32; all contiguous on one CUDA device.  Returns y (B,S,Di) in
     x's dtype and h_end (B,Di,N) in float32."""
-    global LAUNCHES
     _check(x, dt, a, b_ssm, c_ssm, d_skip, h0)
     lib = load()
     bsz, s, di = x.shape
@@ -146,6 +146,5 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         msg = lib.selective_scan_error_string(err).decode()
         raise RuntimeError(f"selective_scan: launch failed with CUDA error "
                            f"{err} ({msg})")
-    with _count_lock:
-        LAUNCHES += 1
+    count_launch(sys.modules[__name__], "LAUNCHES")
     return y, h_end

@@ -208,6 +208,8 @@ def _serve(args, cfg, model, prompts, dev, mesh_shape, ckpt_dir, say):
             f"refills={stats['refills']}, "
             f"recovered={stats['recovered_requests']}, "
             f"kernel launches {stats['launches']}, "
+            f"decode graphs {stats['decode_graph_captures']} captured "
+            f"{stats['decode_graph_replays']} replayed, "
             f"mean queue wait {stats['queue_wait_ms']:.0f}ms, "
             f"p95 first token {stats['ttft_p95_s'] * 1e3:.0f}ms")
         return stats

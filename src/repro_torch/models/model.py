@@ -5,6 +5,7 @@
   train_forward(p, batch)        -> {"logits", "aux", ["mtp_logits"]}
   prefill(p, batch, max_len)     -> (last_logits, cache)
   decode(p, cache, tokens, positions) -> (logits, cache), cache in place
+  decode_graphs                  the decode step's CUDA graphs and counts
   cache_spec(batch, max_len)     -> tree of (shape, logical_axes)
   token_seq_len(seq_len)         text tokens in a sequence of seq_len
 
@@ -34,8 +35,10 @@ A vision config prepends the projected patch embeddings
 sits at sequence position Nv + t.  Decode walks the layers in a Python
 loop and writes each layer's cache in place (``_scan_decode`` in the JAX
 package carries the cache through a scan for the same reason), so
-`decode` returns the very cache objects it was given.  Only
-``train_forward`` runs DeepSeek-V3's multi-token prediction.
+`decode` returns the very cache objects it was given.  On a CUDA device
+with no sharding_context, `decode` replays one CUDA graph of the whole step
+per cache (``models/decode_graphs.py``; ``decode_graphs.step`` is the eager
+step).  Only ``train_forward`` runs DeepSeek-V3's multi-token prediction.
 
 Under a sharding_context over a ``model`` axis (tensor parallelism,
 ``models/transformer.py``) every entry point takes the rank's local params
@@ -49,7 +52,7 @@ caches are still the whole sequence's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +63,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params, linear
+from repro_torch.models.decode_graphs import DecodeGraphs
 from repro_torch.parallel.sharding import seq_group
 
 
@@ -72,6 +76,7 @@ class Model:
     prefill: Callable
     decode: Callable
     cache_spec: Callable
+    decode_graphs: Optional[DecodeGraphs] = None
 
     def token_seq_len(self, seq_len: int) -> int:
         """Text-token count for a given total sequence length."""
@@ -245,7 +250,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return logits[:, 0], cache
 
     @torch.inference_mode()
-    def decode(params, cache, tokens, positions):
+    def decode_step(params, cache, tokens, positions):
         """tokens: (B,1) int; positions: (B,) int32 absolute position."""
         x = tfm.embed_tokens(params, tokens, cfg)
         positions = positions.to(torch.int32)
@@ -264,6 +269,13 @@ def build_model(cfg: ModelConfig) -> Model:
                         d_ff=tfm.stack_d_ff(cfg, name))
         logits = tfm.lm_logits(params, x, cfg)
         return logits[:, 0], cache
+
+    graphs = DecodeGraphs(decode_step)
+
+    @torch.inference_mode()
+    def decode(params, cache, tokens, positions):
+        """`decode_step`, as a CUDA graph where one engages."""
+        return graphs(params, cache, tokens, positions)
 
     def cache_spec(batch: int, max_len: int, local: bool = False):
         """The cache's tree of (shape, logical axes); with `local`, its kv
@@ -295,4 +307,5 @@ def build_model(cfg: ModelConfig) -> Model:
 
     return Model(cfg=cfg, specs=specs, init=init,
                  train_forward=train_forward, prefill=prefill,
-                 decode=decode, cache_spec=cache_spec)
+                 decode=decode, cache_spec=cache_spec,
+                 decode_graphs=graphs)

@@ -1087,8 +1087,13 @@ class ServingEngine:
             unrouted = len(self._unrouted)
         lats = sorted(r.latency_s for r in reqs
                       if r.latency_s is not None)
+        # the model's decode-step CUDA graphs (``models/decode_graphs.py``;
+        # none for a model that keeps none)
+        graphs = getattr(self.model, "decode_graphs", None)
         out = dict(self.counters)
         out.update({
+            "decode_graph_captures": getattr(graphs, "captures", 0),
+            "decode_graph_replays": getattr(graphs, "replays", 0),
             "requests": len(reqs), "completed": completed,
             # the rows of a replica's cache and logits (B/D over a pilot
             # mesh whose batch dims D divide the batch; 0 before its first

@@ -650,3 +650,167 @@ def test_port_modules_and_chip_smoke_import_nothing_of_jax():
                 roots.add(node.module.split(".")[0])
         assert "repro_torch" in roots, path
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+# -- the decode step's CUDA graphs (models/decode_graphs.py) ----------------
+
+def _decode_model(arch):
+    """reduced `arch` in fp32 on the CPU, its params, and a prefill of 2
+    prompts of 6 tokens -> (model, params, prompts, logits, cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.model import build_model
+    model = build_model(reduced(get_config(arch), dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, (2, 6)).astype(np.int32))
+    logits, cache = model.prefill(params, {"tokens": prompts}, 32)
+    return model, params, prompts, logits, cache
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "falcon_mamba_7b"])
+def test_decode_on_the_cpu_is_the_eager_step(arch):
+    """On the CPU `decode` takes the eager path: 3 steps give, bit for bit,
+    the logits and cache of the eager step (``decode_graphs.step``) on a
+    copy of the cache, return the very cache they were given, capture no
+    graph, and end at the logits a prefill of the whole sequence gives."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    model, params, prompts, logits, cache = _decode_model(arch)
+    twin = tree_map(torch.clone, cache)
+    twin_logits, seq = logits, prompts
+    pos = torch.full((2,), 6, dtype=torch.int32)
+    for _ in range(3):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        logits, out = model.decode(params, cache, tok, pos)
+        twin_logits, twin = model.decode_graphs.step(params, twin, tok, pos)
+        assert out is cache
+        assert torch.equal(logits, twin_logits)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(cache),
+                                                     tree_leaves(twin)))
+        seq, pos = torch.cat([seq, tok], 1), pos + 1
+    whole, _ = model.prefill(params, {"tokens": seq}, 32)
+    torch.testing.assert_close(logits, whole, rtol=1e-4, atol=1e-4)
+    graphs = model.decode_graphs
+    assert (graphs.captures, graphs.replays, len(graphs._graphs)) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("model", ["stub", "llama3_2_1b"])
+def test_engine_stats_count_no_decode_graph_on_the_cpu(model, monkeypatch):
+    """`engine.stats()` reports the decode graphs' captures and replays: 0
+    for a stub model, which keeps none, and 0 for a real model on the CPU
+    (the serving CLI's stats), which decodes eagerly."""
+    if model == "stub":
+        with PilotSession(device="cpu") as s:
+            s.add_pilots(1, memory_gb=0.25)
+            with ServingEngine(s, _StubModel(), batch_size=2,
+                               max_len=32) as eng:
+                eng.deploy()
+                req = eng.submit(np.array([1, 2, 3], np.int32), 4)
+                eng.drain(timeout=60)
+                st = eng.stats()
+        assert req.result(timeout=5) == _expected([1, 2, 3], 4)
+    else:
+        st, _ = _serve_cli(model, monkeypatch)
+        assert st["decode_steps"] > 0
+    assert (st["decode_graph_captures"], st["decode_graph_replays"]) == (0, 0)
+
+
+@pytest.mark.parametrize("case", ["card", "sharding_context", "cpu"])
+def test_decode_graph_engages_only_on_a_card_without_a_mesh(case):
+    """The graph engages on a CUDA device with no sharding context; under
+    a ``sharding_context`` (a pilot mesh: its collectives) or on the CPU
+    the step runs eagerly."""
+    from repro_torch.models import decode_graphs
+    from repro_torch.parallel.sharding import AxisRules, sharding_context
+    tokens = (torch.zeros((2, 1), dtype=torch.int32) if case == "cpu"
+              else SimpleNamespace(device=torch.device("cuda")))
+    if case == "sharding_context":
+        with sharding_context(SimpleNamespace(), AxisRules()):
+            assert not decode_graphs.engages(tokens)
+    else:
+        assert decode_graphs.engages(tokens) is (case == "card")
+
+
+def test_graph_key_tells_caches_of_one_shape_apart_by_address():
+    """A graph belongs to the memory it reads and writes: two caches of one
+    shape at different addresses have different keys; the same cache and
+    params, with new tokens and positions of the same shape, the same
+    key; another batch shape another key."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.decode_graphs import graph_key
+    _, params, _, _, cache = _decode_model("llama3_2_1b")
+    other = tree_map(torch.clone, cache)
+    tok, pos = torch.zeros((2, 1), dtype=torch.int32), torch.zeros(
+        2, dtype=torch.int32)
+    key = graph_key(params, cache, tok, pos)
+    assert graph_key(params, other, tok, pos) != key
+    assert graph_key(params, cache, tok + 1, pos + 3) == key
+    assert graph_key(params, cache, tok[:1], pos[:1]) != key
+
+
+def test_decode_graphs_apply_the_step_once_and_drop_with_the_cache(
+        monkeypatch):
+    """The graph bookkeeping, with a stand-in for the capture (a 'graph'
+    whose replay runs the eager step on the static inputs): a miss applies
+    the step once, eagerly, and records (runs nothing); later calls
+    replay, copying their inputs in; the tokens follow the eager step's,
+    the launches a capture recorded are added on each replay, at most
+    MAX_GRAPHS graphs are kept, and a freed cache drops its graph."""
+    import gc
+    import weakref
+    from repro_torch import kernels
+    from repro_torch.models import decode_graphs
+    from repro_torch.models.common import tree_map
+
+    class FakeKernel:               # a kernel wrapper's module counters
+        LAUNCHES = 0
+        _count_lock = threading.Lock()
+
+    model, params, _, logits0, cache = _decode_model("falcon_mamba_7b")
+    graphs = model.decode_graphs
+    step = graphs.step
+
+    def counted_step(*args):
+        kernels.count_launch(FakeKernel, "LAUNCHES")
+        return step(*args)
+
+    def capture(self, params, cache, tokens, positions):
+        st_tok, st_pos = tokens.clone(), positions.clone()
+        with kernels.recorded_launches() as launches:
+            kernels.count_launch(FakeKernel, "LAUNCHES")   # recorded only
+        out = torch.empty_like(logits0)
+        # a CUDA graph holds addresses, not tensors: weak references here
+        refs = tree_map(weakref.ref, cache)
+        graph = SimpleNamespace(replay=lambda: out.copy_(step(
+            params, tree_map(lambda r: r(), refs), st_tok, st_pos)[0]))
+        return decode_graphs._Graph(graph, st_tok, st_pos, out, launches)
+
+    monkeypatch.setattr(graphs, "step", counted_step)
+    monkeypatch.setattr(decode_graphs.DecodeGraphs, "_capture", capture)
+    monkeypatch.setattr(decode_graphs, "engages", lambda tokens: True)
+    eager = tree_map(torch.clone, cache)
+    pos = torch.full((2,), 6, dtype=torch.int32)
+    logits, want = logits0, logits0
+    for t in range(5):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        assert torch.equal(tok, want.argmax(-1).to(torch.int32)[:, None])
+        logits, out = model.decode(params, cache, tok, pos)
+        want, eager = step(params, eager, tok, pos)
+        assert out is cache and torch.equal(logits, want)
+        assert torch.equal(cache["main"]["ssm"]["ssm"],
+                           eager["main"]["ssm"]["ssm"])
+        pos = pos + 1
+    assert (graphs.captures, graphs.replays) == (1, 4)
+    assert FakeKernel.LAUNCHES == 5          # the eager call and 4 replays
+    caches = [tree_map(torch.clone, cache)
+              for _ in range(decode_graphs.MAX_GRAPHS + 1)]
+    for c in caches:
+        model.decode(params, c, tok, pos)
+    assert len(graphs._graphs) == decode_graphs.MAX_GRAPHS
+    assert graphs.captures == 2 + decode_graphs.MAX_GRAPHS
+    # the least recently used went: the first cache's and the next one's
+    assert list(graphs._graphs) == [decode_graphs.graph_key(
+        params, c, tok, pos) for c in caches[1:]]
+    del caches, c
+    gc.collect()
+    assert len(graphs._graphs) == 0
